@@ -1,0 +1,128 @@
+"""Config tree with YAML ``_BASE_`` inheritance and dotted overrides.
+
+Reads the repo's released YAML configs (``configs/stage1/*.yaml``) with the
+merge rules of ``sos_wsod_tpu/config/cfg_node.py``: ``_BASE_`` resolves
+relative to the child file, values are coerced to the type of the default,
+and keys the defaults do not name are taken as they are. The defaults hold
+only the keys the port reads; every other key of a YAML file still lands in
+the tree.
+"""
+from __future__ import annotations
+
+import ast
+import os
+from typing import Any, Dict, List
+
+import yaml
+
+_BASE_KEY = "_BASE_"
+
+
+class CfgNode(dict):
+    """A dict with attribute access and recursive merge."""
+
+    def __init__(self, init: Dict[str, Any] | None = None):
+        super().__init__()
+        for k, v in (init or {}).items():
+            self[k] = v
+
+    def __getattr__(self, name: str) -> Any:
+        if name in self:
+            return self[name]
+        raise AttributeError(f"Config has no attribute '{name}'")
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    def __setitem__(self, name: str, value: Any) -> None:
+        if isinstance(value, dict) and not isinstance(value, CfgNode):
+            value = CfgNode(value)
+        super().__setitem__(name, value)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {k: v.to_dict() if isinstance(v, CfgNode) else v for k, v in self.items()}
+
+    def merge_from_file(self, filename: str) -> None:
+        _merge_a_into_b(_load_yaml_with_base(filename), self)
+
+    def merge_from_list(self, opts: List[Any]) -> None:
+        """``["MODEL.ROI_HEADS.NUM_CLASSES", "20", ...]``: existing keys only."""
+        if len(opts) % 2:
+            raise ValueError(f"override list has odd length: {opts}")
+        for key, value in zip(opts[0::2], opts[1::2]):
+            *parents, leaf = key.split(".")
+            node = self
+            for p in parents:
+                node = node[p]
+            if leaf not in node:
+                raise KeyError(f"non-existent config key: {key}")
+            node[leaf] = _coerce_value(value, node[leaf], key)
+
+
+def _coerce_value(value: Any, old: Any, key: str) -> Any:
+    """Parse a string value (python literal, else YAML) and check it against
+    the type of the value it replaces."""
+    if isinstance(value, str):
+        try:
+            value = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            try:
+                value = yaml.safe_load(value)
+            except yaml.YAMLError:
+                pass
+    if isinstance(value, (list, tuple)) and isinstance(old, (list, tuple)):
+        return type(old)(value)
+    if old is None or value is None:
+        return value
+    if isinstance(old, bool):
+        if isinstance(value, bool):
+            return value
+    elif isinstance(old, float) and isinstance(value, int):
+        return float(value)
+    elif isinstance(value, type(old)):
+        return value
+    raise ValueError(f"type mismatch for {key}: {type(old).__name__} vs "
+                     f"{type(value).__name__} ({value!r})")
+
+
+def _merge_a_into_b(a: Dict[str, Any], b: CfgNode) -> None:
+    for k, v in a.items():
+        if k == _BASE_KEY:
+            continue
+        if isinstance(b.get(k), CfgNode) and isinstance(v, dict):
+            _merge_a_into_b(v, b[k])
+        else:
+            b[k] = _coerce_value(v, b[k], k) if k in b else v
+
+
+def _load_yaml_with_base(filename: str) -> Dict[str, Any]:
+    with open(filename) as f:
+        cfg = yaml.safe_load(f) or {}
+    base = cfg.pop(_BASE_KEY, None)
+    if base is None:
+        return cfg
+    merged = CfgNode(_load_yaml_with_base(os.path.join(os.path.dirname(filename), base)))
+    _merge_a_into_b(cfg, merged)
+    return merged.to_dict()
+
+
+def get_cfg() -> CfgNode:
+    """The defaults of every key the port reads (the values of the JAX
+    package's ``get_cfg()``)."""
+    return CfgNode({
+        "MODEL": {
+            "PIXEL_MEAN": [103.530, 116.280, 123.675],   # BGR
+            "PIXEL_STD": [1.0, 1.0, 1.0],
+            "VGG": {"CONV5_DILATION": 1},
+            "ROI_HEADS": {"NUM_CLASSES": 80, "SCORE_THRESH_TEST": 0.05,
+                          "NMS_THRESH_TEST": 0.5},
+            "ROI_BOX_HEAD": {"POOLER_RESOLUTION": 14, "POOLER_TYPE": "ROIAlignV2",
+                             "DAN_DIM": [4096, 4096]},
+        },
+        "INPUT": {"MIN_SIZE_TEST": 800, "MAX_SIZE_TEST": 1333},
+        "TEST": {"DETECTIONS_PER_IMAGE": 100},
+        "WSL": {"REFINE_NUM": 3, "REFINE_REG": [False, False, False]},
+        # the config files' own namespace for padding and dtype knobs
+        "TPU": {"PROPOSAL_CAPACITY": 4096, "IMAGE_SIZE_DIVISIBILITY": 64,
+                "COMPUTE_DTYPE": "bfloat16"},
+    })

@@ -1,0 +1,65 @@
+"""Box geometry on plain ``(..., 4)`` XYXY float tensors.
+
+Counterpart of ``sos_wsod_tpu/core/boxes.py``: raw tensors plus explicit
+validity masks instead of a Boxes class. The pairwise functions broadcast over
+leading batch dimensions, so one call serves a batch of per-class problems.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+# clamp for dw/dh in apply_deltas (d2 box_regression.py:10)
+SCALE_CLAMP = math.log(1000.0 / 16)
+
+
+def box_area(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> (...,). d2 convention: (x2-x1)*(y2-y1), no +1."""
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def pairwise_intersection(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """(..., M, 4), (..., N, 4) -> (..., M, N) intersection areas (clamped at 0)."""
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    return wh[..., 0] * wh[..., 1]
+
+
+def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """d2 pairwise_iou: IoU=0 where the intersection is 0 (also for empty boxes)."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    inter = pairwise_intersection(boxes1, boxes2)
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    safe = torch.where(union > 0, union, torch.ones_like(union))
+    return torch.where(inter > 0, inter / safe, torch.zeros_like(inter))
+
+
+def apply_deltas(
+    deltas: torch.Tensor,
+    boxes: torch.Tensor,
+    weights: Tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0),
+) -> torch.Tensor:
+    """Decode deltas (N, K*4) against boxes (N, 4) -> (N, K*4), with the
+    dw/dh SCALE_CLAMP of d2's Box2BoxTransform.apply_deltas."""
+    n, k4 = deltas.shape
+    d = deltas.reshape(n, k4 // 4, 4)
+    wx, wy, ww, wh = weights
+    widths = boxes[:, 2] - boxes[:, 0]
+    heights = boxes[:, 3] - boxes[:, 1]
+    ctr_x = boxes[:, 0] + 0.5 * widths
+    ctr_y = boxes[:, 1] + 0.5 * heights
+    dx = d[..., 0] / wx
+    dy = d[..., 1] / wy
+    dw = torch.clamp(d[..., 2] / ww, max=SCALE_CLAMP)
+    dh = torch.clamp(d[..., 3] / wh, max=SCALE_CLAMP)
+    pcx = dx * widths[:, None] + ctr_x[:, None]
+    pcy = dy * heights[:, None] + ctr_y[:, None]
+    pw = torch.exp(dw) * widths[:, None]
+    ph = torch.exp(dh) * heights[:, None]
+    out = torch.stack(
+        [pcx - 0.5 * pw, pcy - 0.5 * ph, pcx + 0.5 * pw, pcy + 0.5 * ph], dim=-1)
+    return out.reshape(n, k4)

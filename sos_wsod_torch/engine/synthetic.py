@@ -1,0 +1,111 @@
+"""Random weights and synthetic test samples, for runs without a checkpoint
+or a dataset (the GPU smoke run and the inference profile).
+
+Everything is made with numpy from a seed: the same seed gives the same
+weights, images and proposals on any machine.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from ..config import get_cfg
+from ..data import transforms as T
+from ..models.meta.rcnn_wsl import MultiInputRCNN
+from .weights import load_weights, state_dict_from_d2_wsl
+
+
+def random_d2_wsl_blobs(seed: int, num_classes: int, refine_k: int,
+                        dan_dims: Sequence[int]) -> Dict[str, np.ndarray]:
+    """Random VGG16 OICR+ weights under the d2-WSL checkpoint names:
+    msra-scaled convs and the JAX package's head initializer scales."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    blobs = {}
+    cin = 3
+    for name, cout, n in (("plain1", 64, 2), ("plain2", 128, 2), ("plain3", 256, 3),
+                          ("plain4", 512, 3), ("plain5", 512, 3)):
+        for i in range(1, n + 1):
+            blobs[f"backbone.{name}.conv{i}.weight"] = normal((cout, cin, 3, 3),
+                                                              np.sqrt(2.0 / (9 * cout)))
+            blobs[f"backbone.{name}.conv{i}.bias"] = normal((cout,), 0.01)
+            cin = cout
+    dims = [512 * 49, *dan_dims]
+    for i in range(len(dan_dims)):
+        blobs[f"roi_heads.box_head.fc{i + 1}.weight"] = normal((dims[i + 1], dims[i]), 0.005)
+        blobs[f"roi_heads.box_head.fc{i + 1}.bias"] = np.full(dims[i + 1], 0.1, np.float32)
+    f = dims[-1]
+    for name in ("cls", "det"):
+        blobs[f"roi_heads.box_predictor.{name}.weight"] = normal((num_classes, f),
+                                                                 np.sqrt(2.0 / (f + num_classes)))
+        blobs[f"roi_heads.box_predictor.{name}.bias"] = np.zeros(num_classes, np.float32)
+    for k in range(refine_k):
+        prefix = f"roi_heads.box_refinery_{k}"
+        blobs[f"{prefix}.cls_score.weight"] = normal((num_classes + 1, f), 0.01)
+        blobs[f"{prefix}.cls_score.bias"] = np.zeros(num_classes + 1, np.float32)
+        blobs[f"{prefix}.bbox_pred.weight"] = normal((num_classes * 4, f), 0.001)
+        blobs[f"{prefix}.bbox_pred.bias"] = np.zeros(num_classes * 4, np.float32)
+    return blobs
+
+
+def synthetic_test_samples(cfg, n: int, raw_hw: Tuple[int, int], num_proposals: int,
+                           seed: int) -> Tuple[List[dict], Dict[str, dict]]:
+    """``n`` test samples with the keys of the JAX package's
+    DatasetMapperTest, and evaluator annotations for them. Each sample is a
+    random raw BGR image of ``raw_hw`` resized by ResizeShortestEdge(
+    INPUT.MIN_SIZE_TEST, INPUT.MAX_SIZE_TEST) and padded to the
+    TPU.IMAGE_SIZE_DIVISIBILITY canvas, with ``num_proposals`` random
+    proposals transformed the same way and padded to TPU.PROPOSAL_CAPACITY."""
+    rng = np.random.RandomState(seed)
+    h, w = raw_hw
+    div, cap = cfg.TPU.IMAGE_SIZE_DIVISIBILITY, cfg.TPU.PROPOSAL_CAPACITY
+    t = T.resize_shortest_edge(h, w, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    ih, iw = t.output_size
+    samples, annotations = [], {}
+    for i in range(n):
+        canvas = np.zeros((-(-ih // div) * div, -(-iw // div) * div, 3), np.float32)
+        canvas[:ih, :iw] = t.apply_image(rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        x1 = rng.uniform(0, w - 8, num_proposals)
+        y1 = rng.uniform(0, h - 8, num_proposals)
+        raw = np.stack([x1, y1, np.minimum(x1 + rng.uniform(8, w / 2, num_proposals), w),
+                        np.minimum(y1 + rng.uniform(8, h / 2, num_proposals), h)], 1)
+        boxes = np.zeros((cap, 4), np.float32)
+        boxes[:num_proposals] = T.clip_boxes(t.apply_box(raw), (ih, iw))
+        objectness = np.zeros(cap, np.float32)
+        objectness[:num_proposals] = rng.uniform(0, 1, num_proposals)
+        image_id = 1000 + i
+        samples.append({
+            "image": canvas,
+            "valid_hw": np.array([ih, iw], np.int32),
+            "boxes": boxes,
+            "objectness": objectness,
+            "prop_valid": np.arange(cap) < num_proposals,
+            "image_hw": np.array([ih, iw], np.float32),
+            "image_id": image_id,
+            "orig_hw": np.array([h, w], np.float32),
+        })
+        annotations[str(image_id)] = {"boxes": np.array([[50.0, 40.0, 300.0, 250.0]]),
+                                      "classes": np.array([i % cfg.MODEL.ROI_HEADS.NUM_CLASSES]),
+                                      "difficult": np.zeros(1, bool)}
+    return samples, annotations
+
+
+def build_synthetic_slice(config_file: str, device, num_images: int,
+                          raw_hw: Tuple[int, int], num_proposals: int, seed: int,
+                          opts: Sequence = ()):
+    """The model of ``config_file`` (with the overrides ``opts``) with random
+    weights from ``seed`` on ``device``, and ``num_images`` synthetic samples
+    with their annotations. Returns (cfg, model, samples, annotations)."""
+    cfg = get_cfg()
+    cfg.merge_from_file(config_file)
+    cfg.merge_from_list(list(opts))
+    model = MultiInputRCNN.from_cfg(cfg, device="meta")
+    blobs = random_d2_wsl_blobs(seed, cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.WSL.REFINE_NUM,
+                                cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)
+    model = load_weights(model, state_dict_from_d2_wsl(blobs), device)
+    samples, annotations = synthetic_test_samples(cfg, num_images, raw_hw, num_proposals, seed)
+    return cfg, model, samples, annotations

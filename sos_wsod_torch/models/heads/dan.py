@@ -1,0 +1,33 @@
+"""DiscriminativeAdaptionNeck (DAN) box head.
+
+Counterpart of ``sos_wsod_tpu/models/heads/dan.py`` for the OICR+ config (no
+convs): flatten the channels-last pooled ROIs in (h, w, c) order, then
+FC -> ReLU -> Dropout per entry of ``fc_dims``. fc1's input rows are in
+(h, w, c) order; ``engine.weights`` permutes torch/caffe (c, h, w) weights
+to match.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+
+class DAN(nn.Module):
+    def __init__(self, in_features: int, fc_dims: Sequence[int] = (4096, 4096),
+                 dropout_rate: float = 0.5, device=None):
+        super().__init__()
+        dims = [in_features, *fc_dims]
+        for i in range(len(fc_dims)):
+            self.add_module(f"fc{i + 1}", nn.Linear(dims[i], dims[i + 1], device=device))
+        self.num_fc = len(fc_dims)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (P, PH, PW, C) -> (P, fc_dims[-1])."""
+        x = x.reshape(x.shape[0], -1)
+        for i in range(self.num_fc):
+            x = self.dropout(F.relu(getattr(self, f"fc{i + 1}")(x)))
+        return x

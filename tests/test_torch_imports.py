@@ -1,0 +1,68 @@
+"""The port imports no JAX, and its CUDA build fails loudly without nvcc."""
+from __future__ import annotations
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from sos_wsod_torch.kernels import build
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, runpy, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+sys.modules["sos_wsod_tpu"] = None
+import sos_wsod_torch
+names = [m.name for m in pkgutil.walk_packages(sos_wsod_torch.__path__, "sos_wsod_torch.")]
+for name in names:
+    importlib.import_module(name)
+smoke = runpy.run_path("chip_smoke.py", run_name="chip_smoke")
+runpy.run_path("tools/profile_torch_inference.py", run_name="profile_torch_inference")
+
+# the host path chip_smoke drives, at a small size on the CPU
+from sos_wsod_torch.data.voc import CLASS_NAMES
+from sos_wsod_torch.engine.defaults import run_stage1_inference
+from sos_wsod_torch.engine.synthetic import build_synthetic_slice
+from sos_wsod_torch.evaluation.voc_eval import PascalVOCDetectionEvaluator
+opts = ["INPUT.MIN_SIZE_TEST", 48, "TPU.PROPOSAL_CAPACITY", 32,
+        "MODEL.ROI_BOX_HEAD.DAN_DIM", [16, 16], "TPU.COMPUTE_DTYPE", "float32"]
+_, model, samples, ann = build_synthetic_slice(
+    str(smoke["CONFIG"]), "cpu", 2, (60, 80), 24, 0, opts)
+assert samples[0]["image"].shape == (64, 64, 3), samples[0]["image"].shape
+with tempfile.TemporaryDirectory() as tmp:
+    ev = PascalVOCDetectionEvaluator("voc_2007_test", ann, CLASS_NAMES,
+                                     save_detection_result=True, save_path=tmp + "/{}.json")
+    run_stage1_inference(model, samples, ev, "cpu")
+    dets = json.load(open(tmp + "/voc_2007_test.json"))
+assert {d["image_id"] for d in dets} == {1000, 1001}, dets[:3]
+
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu")
+             and sys.modules[m] is not None)
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    """Every sos_wsod_torch module, chip_smoke.py and the profile tool import
+    with jax, flax and the JAX package blocked, and the host path that
+    chip_smoke drives (config, synthetic samples, weights, inference, the
+    evaluator's JSON) runs at a small size on the CPU."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 25
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    """No nvcc: the build raises a clear error and writes no library."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build("roi_pool_fwd")
+    assert not build.library_path("roi_pool_fwd").exists()
