@@ -5,22 +5,39 @@
 
 Phases, one line each; any failure raises and the script exits non-zero:
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles every CUDA kernel of the stage-1 inference path with
-     nvcc from the sources in this checkout (into build/sos_wsod_torch/);
-  3. kernel vs plain: the ROIPool kernel against its plain PyTorch version at
-     the production shape, bf16 and f32, bit-identical out and argmax, with
-     median CUDA-event times of both;
-  4. slice: the full-width VGG16 OICR+ model of
+  2. build: compiles every CUDA kernel of the stage-1 inference and training
+     paths with nvcc from the sources in this checkout (into
+     build/sos_wsod_torch/), one nvcc per source, all started together;
+  3. forward kernel vs plain: the ROIPool forward kernel against its plain
+     PyTorch version at the production shape, bf16 and f32, bit-identical out
+     and argmax, with median CUDA-event times of both;
+  4. backward kernel vs plain: the ROIPool backward kernel against its plain
+     version on the forward kernel's argmax at the production shape, f32
+     accumulators within the atomics' rounding bound and exact on integer
+     sums, with median times in bf16 and f32 there and at the top training
+     scale;
+  5. inference slice: the full-width VGG16 OICR+ model of
      configs/stage1/voc07_oicr_plus.yaml with random weights made from a
      seed, 4 synthetic VOC-sized images through run_stage1_inference in bf16
      into the VOC evaluator, which writes the detection-result JSON; checks
-     the JSON and the kernel's launch count, holds the kernel against the
-     plain pool on a real backbone feature, and the bf16 outputs against an
-     f32 run of the same model (the kernel's f32 path).
-The images/sec it prints are a smoke reading over 4 images with evaluate()
-and the JSON write inside the window; tools/profile_torch_inference.py
-measures the throughput baseline.
-Then one JSON line per kernel and, last, {"ok": true, "device": {...}}.
+     the JSON and the forward kernel's launch count, holds the kernel against
+     the plain pool on a real backbone feature, and the bf16 outputs against
+     an f32 run of the same model (the kernel's f32 path);
+  6. training slice: the same full-width model in train mode (dropout 0.5,
+     bf16 autocast, SOLVER.IMS_PER_BATCH 1), synthetic 375x500 dataset dicts
+     with 4000 proposals through DatasetMapperMultiInput (in the config's
+     DATALOADER.NUM_WORKERS threads) and batched_stream into
+     Stage1Trainer.train for a few steps; checks every loss and metric key
+     at each step, 4 forward and 4 backward kernel launches per step,
+     trained weights moved and frozen ones unchanged, and one step's bf16
+     losses against f32 (dropout off); prints step times, canvases, peak
+     memory, and over 2 warm profiled steps the device time of each profiler
+     range and the NMS fixpoint iterations of each mining round.
+The images/sec it prints are smoke readings: 4 inference images with
+evaluate() and the JSON write inside the window, and a few training steps;
+tools/profile_torch_inference.py measures the inference throughput baseline.
+Then one JSON line with the kernels, the card's line and, last,
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -31,17 +48,24 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 ROOT = pathlib.Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "stage1" / "voc07_oicr_plus.yaml"
 FEAT_HWC = (87, 119, 512)      # plain5 of a 688x917 image on its 704x960 canvas
+TOP_FEAT_HWC = (152, 204, 512)  # plain5 at the top training scale, 1216 x ~1621
 NUM_PROPOSALS, CAPACITY = 4000, 4096
 RAW_HW = (375, 500)            # a typical VOC07 image
 NUM_IMAGES = 4
+TRAIN_STEPS = 4
 SEED = 0
+KERNELS = ("roi_pool_fwd", "roi_pool_bwd")
+RANGES = ("h2d", "backbone", "roi_pool", "box_head", "mining", "losses", "backward",
+          "optimizer")
 
 
 def log(phase: str, msg: str) -> None:
@@ -63,15 +87,19 @@ def phase_device() -> str:
 def phase_build() -> None:
     from sos_wsod_torch.kernels import build
 
-    stale = build.library_path("roi_pool_fwd")
-    stale.unlink(missing_ok=True)   # build from the sources, not a cached library
-    t0 = time.perf_counter()
-    lib = build.build("roi_pool_fwd")
-    secs = time.perf_counter() - t0
-    report = lib.with_name(lib.name + ".log").read_text()
-    ptxas = " ".join(l.split("ptxas info    : ")[-1] for l in report.splitlines()
-                     if "registers" in l or "spill" in l)
-    log("build", f"roi_pool_fwd.cu -> {lib.relative_to(ROOT)} in {secs:.2f} s; {ptxas}")
+    def one(name):
+        build.library_path(name).unlink(missing_ok=True)   # build from the sources
+        t0 = time.perf_counter()
+        lib = build.build(name)
+        return lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        done = list(ex.map(one, KERNELS))
+    for name, (lib, secs) in zip(KERNELS, done):
+        report = lib.with_name(lib.name + ".log").read_text()
+        ptxas = " ".join(line.split("ptxas info    : ")[-1] for line in report.splitlines()
+                         if "registers" in line or "spill" in line)
+        log("build", f"{name}.cu -> {lib.relative_to(ROOT)} in {secs:.2f} s; {ptxas}")
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -102,15 +130,15 @@ def _assert_same(name: str, out_k, pos_k, out_p, pos_p) -> float:
     return float((out_k.float() - out_p.float()).abs().max())
 
 
-def production_pool_inputs(device):
+def production_pool_inputs(device, hwc=FEAT_HWC):
     """Random plain5-sized features with a constant tie plateau, 4000 random
     proposals padded to 4096 plus whole-image, sub-cell, corner and sliver
     boxes, and objectness scales in [1, 2]."""
     rng = np.random.RandomState(SEED)
-    h, w, c = FEAT_HWC
+    h, w, c = hwc
     feat = rng.randn(h, w, c).astype(np.float32)
     feat[10:30, 20:50] = 1.5                          # tie plateau
-    img_h, img_w = 688, 917
+    img_h, img_w = 8 * h - 8, 8 * w - 35              # 688 x 917 at the production shape
     x1 = rng.uniform(0, img_w - 10, CAPACITY)
     y1 = rng.uniform(0, img_h - 10, CAPACITY)
     boxes = np.stack([x1, y1, np.minimum(x1 + rng.uniform(2, img_w / 2, CAPACITY), img_w),
@@ -150,6 +178,53 @@ def phase_kernel_vs_plain(device) -> dict:
                       f"plain {plain_ms:.3f} ms")
         result[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
     return result[torch.bfloat16]
+
+
+def phase_backward_vs_plain(device) -> dict:
+    """The backward kernel on the forward kernel's argmax. Tolerance from
+    the atomics: both versions add the same f32 products g x rs into each
+    cell, in different orders, so a cell whose n terms have absolute sum S
+    differs by at most 2 n 2^-24 S (each side's sum within n u S); with
+    g = 1 and no scale every sum is an integer below 2^24 and must be exact."""
+    from sos_wsod_torch.kernels.roi_pool import roi_pool_fwd_cuda
+    from sos_wsod_torch.kernels.roi_pool_bwd import roi_pool_bwd_cuda
+    from sos_wsod_torch.ops.roi_pool import bin_windows, roi_pool_backward_reference
+
+    gen = torch.Generator(device).manual_seed(SEED)
+    result = {}
+    for hwc in (FEAT_HWC, TOP_FEAT_HWC):
+        feat32, boxes, valid, rs = production_pool_inputs(device, hwc)
+        h, w, c = hwc
+        win = bin_windows(boxes, valid, h, w, 7, 7, 1.0 / 8)
+        for dtype in (torch.bfloat16, torch.float32):
+            _, pos = roi_pool_fwd_cuda(feat32.to(dtype), *win, valid, rs)
+            g = torch.randn(pos.shape, generator=gen, device=device).to(dtype)
+            rs_t = rs.to(dtype).float()
+            acc_k = roi_pool_bwd_cuda(g, pos, rs_t, h, w)
+            acc_p = roi_pool_backward_reference(g, pos, rs_t, h, w)
+            ones = torch.ones_like(g)
+            count = roi_pool_backward_reference(ones, pos, None, h, w)
+            exact = torch.equal(roi_pool_bwd_cuda(ones, pos, None, h, w), count)
+            abs_sum = roi_pool_backward_reference(g.abs(), pos, rs_t, h, w)
+            torch.cuda.synchronize()
+            err = (acc_k - acc_p).abs()
+            bound = 2 * count * 2.0 ** -24 * abs_sum
+            if not exact:
+                raise AssertionError(f"roi_pool_bwd {hwc} {dtype}: integer sums differ")
+            if not bool((err <= bound).all()):
+                raise AssertionError(f"roi_pool_bwd {hwc} {dtype}: {int((err > bound).sum())} "
+                                     f"cells beyond the atomics' bound, max |d| {float(err.max())}")
+            ms = _cuda_ms(lambda: roi_pool_bwd_cuda(g, pos, rs_t, h, w), 20)
+            plain_ms = _cuda_ms(lambda: roi_pool_backward_reference(g, pos, rs_t, h, w), 5)
+            mb = h * w * c * 4 / 2 ** 20
+            log("kernel", f"roi_pool_bwd {str(dtype)[6:]} g {tuple(g.shape)} -> acc {hwc} f32 "
+                          f"({mb:.1f} MiB): integer sums exact, max |d| {float(err.max()):.3e} "
+                          f"within the bound (max {float(bound.max()):.3e}, up to "
+                          f"{int(count.max())} terms a cell); kernel {ms:.3f} ms, "
+                          f"plain {plain_ms:.3f} ms")
+            result[(hwc, dtype)] = {"max_abs_err": float(err.max()), "ms": ms,
+                                    "plain_ms": plain_ms}
+    return result[(FEAT_HWC, torch.bfloat16)]
 
 
 def phase_slice(device, smi: str) -> int:
@@ -226,6 +301,211 @@ def phase_slice(device, smi: str) -> int:
     return launches
 
 
+def _range_ms(prof, names, ctypes_kernels):
+    """Host ms of each profiler range (its wall interval on the host), and
+    device ms of the kernels launched inside it. A kernel counts for the
+    range whose host interval holds its launching op's start, on any thread
+    (the autograd engine runs the backward on its own thread, inside the
+    main thread's ``backward`` range). Kernels launched through ctypes are
+    tied to no op; ``ctypes_kernels`` names their range."""
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.name in names and e.device_type == DeviceType.CPU]
+    host = dict.fromkeys(names, 0.0)
+    for s0, s1, n in spans:
+        host[n] += (s1 - s0) / 1e3
+    out = dict.fromkeys(names, 0.0)
+    other = 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        us = sum(k.duration for k in e.kernels)
+        hit = [n for s0, s1, n in spans if s0 <= e.time_range.start <= s1 and n != e.name]
+        if hit:
+            out[hit[0]] += us / 1e3
+        else:
+            other += us / 1e3
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            for kernel_name, range_name in ctypes_kernels.items():
+                if kernel_name in e.name:
+                    out[range_name] += (e.time_range.end - e.time_range.start) / 1e3
+    return host, out, other
+
+
+def _mining_nms_iterations(prof):
+    """NMS fixpoint iterations of each mining round in the profile: the
+    ``aten::equal`` convergence checks of ``ops/nms.py`` (nothing else in a
+    round calls it) inside each ``mining`` range, on that range's thread."""
+    events = prof.events()
+    checks = [(e.thread, e.time_range.start) for e in events if e.name == "aten::equal"]
+    rounds = sorted((e.time_range.start, e.time_range.end, e.thread) for e in events
+                    if e.name == "mining" and e.device_type == DeviceType.CPU)
+    return [sum(th == t and s0 <= s <= s1 for th, s in checks) for s0, s1, t in rounds]
+
+
+class _StepProbe:
+    """Wraps the batch stream and times each step on the card: records each
+    batch, the synchronized wall time, the kernel launches the step added,
+    and the scalars the step logged."""
+
+    def __init__(self, stream):
+        self.stream = stream
+        self.batches, self.times, self.launches, self.scalars = [], [], [], []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.stream)
+        self.batches.append(batch)
+        return batch
+
+    def hook(self):
+        from sos_wsod_torch.engine.hooks import HookBase
+        from sos_wsod_torch.kernels import roi_pool as fwd, roi_pool_bwd as bwd
+
+        probe = self
+
+        class Hook(HookBase):
+            def before_step(self):
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+                self.counts = (fwd.launches, bwd.launches)
+
+            def after_step(self):
+                torch.cuda.synchronize()
+                probe.times.append(time.perf_counter() - self.t0)
+                probe.launches.append((fwd.launches - self.counts[0],
+                                       bwd.launches - self.counts[1]))
+                probe.scalars.append({k: v for k, (v, it) in self.trainer.storage.latest().items()
+                                      if it == self.trainer.iter})
+
+        return Hook()
+
+
+def _expected_keys(refine_k: int):
+    keys = {"loss_cls", "total_loss", "data_time"}
+    for k in range(refine_k):
+        keys |= {f"loss_cls_r{k}", f"loss_box_reg_r{k}", f"roi_head/num_fg_samples_r{k}",
+                 f"roi_head/num_bg_samples_r{k}", f"roi_head/num_ig_samples_r{k}",
+                 f"fast_rcnn/cls_accuracy_r{k}", f"fast_rcnn/fg_cls_accuracy_r{k}",
+                 f"fast_rcnn/false_negative_r{k}"}
+    return keys
+
+
+def phase_train(device, smi: str) -> dict:
+    """The full-width training slice through Stage1Trainer. Returns the
+    training run's kernel launch counts."""
+    from sos_wsod_torch.data.build import batched_stream
+    from sos_wsod_torch.data.mapper_multi import DatasetMapperMultiInput
+    from sos_wsod_torch.engine.synthetic import (
+        build_synthetic_model, load_config, synthetic_train_dicts)
+    from sos_wsod_torch.engine.trainer import Stage1Trainer
+    from sos_wsod_torch.kernels import roi_pool as fwd, roi_pool_bwd as bwd
+
+    t0 = time.perf_counter()
+    override = ["SOLVER.IMS_PER_BATCH", 1]
+    cfg = load_config(str(CONFIG), override)
+    model = build_synthetic_model(cfg, device, SEED)
+    dicts = synthetic_train_dicts(TRAIN_STEPS + 2, RAW_HW, NUM_PROPOSALS,
+                                  cfg.MODEL.ROI_HEADS.NUM_CLASSES, SEED)
+    probe = _StepProbe(batched_stream(
+        dicts, DatasetMapperMultiInput.from_cfg(cfg), cfg.SOLVER.IMS_PER_BATCH,
+        seed=max(cfg.SEED, 0), size_divisibility=cfg.TPU.IMAGE_SIZE_DIVISIBILITY,
+        num_workers=cfg.DATALOADER.NUM_WORKERS,
+        aspect_ratio_grouping=cfg.DATALOADER.ASPECT_RATIO_GROUPING))
+    trainer = Stage1Trainer(cfg, model, probe)
+    trainer.register_hooks([probe.hook()])
+    params = dict(model.named_parameters())
+    watch = ("backbone.plain1.conv1.weight", "backbone.plain2.conv2.weight",
+             "roi_heads.dan.fc1.weight", "roi_heads.box_refinery_2.cls_score.weight")
+    before = {n: params[n].detach().clone() for n in watch}
+    log("train", f"override {override} (the reference's one image per GPU); model "
+                 f"{sum(p.numel() for p in params.values()) / 1e6:.1f}M params, "
+                 f"{sum(p.numel() for p in params.values() if p.requires_grad) / 1e6:.1f}M "
+                 f"trained ({model.compute_dtype}, dropout "
+                 f"{model.roi_heads.dan.dropout_rate}); mapper in "
+                 f"{cfg.DATALOADER.NUM_WORKERS} threads (DATALOADER.NUM_WORKERS); ready in "
+                 f"{time.perf_counter() - t0:.1f} s")
+
+    fwd.launches = bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    trainer.train(0, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = {"roi_pool_fwd": fwd.launches, "roi_pool_bwd": bwd.launches}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    want = _expected_keys(cfg.WSL.REFINE_NUM)
+    for step, scalars in enumerate(probe.scalars):
+        if set(scalars) != want or not np.isfinite(list(scalars.values())).all():
+            raise AssertionError(f"step {step}: missing {want - set(scalars)}, extra "
+                                 f"{set(scalars) - want}, non-finite "
+                                 f"{[k for k, v in scalars.items() if not np.isfinite(v)]}")
+    if probe.launches != [(4, 4)] * TRAIN_STEPS or launches != {
+            "roi_pool_fwd": 4 * TRAIN_STEPS, "roi_pool_bwd": 4 * TRAIN_STEPS}:
+        raise AssertionError(f"kernel launches per step {probe.launches}, total {launches}")
+    for n in watch:
+        same = torch.equal(before[n], params[n].detach())
+        if same != (".plain1." in n or ".plain2." in n):
+            raise AssertionError(f"{n}: {'unchanged' if same else 'moved'} after training")
+    for step, (b, t, sc) in enumerate(zip(probe.batches, probe.times, probe.scalars)):
+        s = b[0]
+        log("train", f"step {step}: {t * 1e3:.1f} ms; canvases s1 {s['images_s1'].shape[1:3]} "
+                     f"valid {tuple(s['valid_hw_s1'][0].tolist())}, s2 "
+                     f"{s['images_s2'].shape[1:3]} valid {tuple(s['valid_hw_s2'][0].tolist())}; "
+                     f"{int(s['prop_valid'].sum())} "
+                     f"proposals; total_loss {sc['total_loss']:.4f} loss_cls "
+                     f"{sc['loss_cls']:.4f} data_time {sc['data_time'] * 1e3:.1f} ms")
+    warm = statistics.median(probe.times[1:])
+    log("train", f"{TRAIN_STEPS} steps, 4 fwd + 4 bwd kernel launches each; fc6 and "
+                 f"box_refinery_2 moved, plain1/plain2 bit-identical; smoke reading: warm "
+                 f"median {warm * 1e3:.1f} ms/step = {1 / warm:.2f} img/s, first step "
+                 f"{probe.times[0] * 1e3:.1f} ms; peak memory {peak_gb:.2f} GB on {smi}")
+
+    # one step's losses, bf16 against f32, dropout off, on the first batch.
+    # Bound 1%, set from readings: the sound build read 0.007%, 0.04% and
+    # 0.16% in three runs (after 4 steps whose weights differ run to run).
+    batch = {k: torch.as_tensor(v, device=device) for k, v in probe.batches[0][0].items()
+             if k != "image_id"}
+    model.eval()
+    with torch.no_grad():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            l16 = model.loss(batch)
+        l32 = model.loss(batch)
+    model.train()
+    shown = ("loss_cls", "loss_cls_r0", "loss_box_reg_r0", "loss_cls_r3", "loss_box_reg_r3")
+    pairs = {k: (l16[k].item(), l32[k].item()) for k in shown}
+    log("train", "bf16 vs f32, dropout off: " + ", ".join(
+        f"{k} {a:.5f} / {b:.5f}" for k, (a, b) in pairs.items()))
+    a, b = pairs["loss_cls"]
+    if not (np.isfinite(a) and np.isfinite(b)) or abs(a - b) > 0.01 * abs(b):
+        raise AssertionError(f"loss_cls bf16 {a} vs f32 {b}: beyond 1%")
+
+    # 2 warm profiled steps: host and device time of each profiler range
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(TRAIN_STEPS, TRAIN_STEPS + 2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    probe.stream.close()
+    host, per_range, other = _range_ms(
+        prof, RANGES, {"roi_pool_fwd_kernel": "roi_pool", "roi_pool_bwd_kernel": "backward"})
+    busy = sum(per_range.values()) + other
+    canvases = [(b[0]["images_s1"].shape[1:3], b[0]["images_s2"].shape[1:3])
+                for b in probe.batches[-2:]]
+    log("train", f"ms per step over 2 profiled steps (canvases s1/s2 {canvases}), range "
+        f"host/device: " + ", ".join(f"{n} {host[n] / 2:.2f}/{v / 2:.2f}"
+                                     for n, v in per_range.items()) +
+        f", device outside the ranges {other / 2:.2f}; busy {busy / 2:.1f} of {wall_ms / 2:.1f} ms wall "
+        f"({100 * busy / wall_ms:.1f}%, profiler on); data_time "
+        f"{[round(sc['data_time'] * 1e3, 1) for sc in probe.scalars[-2:]]} ms; NMS fixpoint "
+        f"iterations per mining round {_mining_nms_iterations(prof)}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     device = torch.device("cuda", 0)
@@ -233,13 +513,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
-    kernel = phase_kernel_vs_plain(device)
-    launches = phase_slice(device, smi)
-    print(json.dumps({"kernels": [{
-        "name": "roi_pool_fwd", "route": "cuda",
-        "source": "sos_wsod_torch/csrc/roi_pool_fwd.cu",
-        "replaces": "sos_wsod_tpu/ops/pallas/roi_pool_fused.py:240",
-        "launches": launches, **kernel}]}))
+    fwd_times = phase_kernel_vs_plain(device)
+    bwd_times = phase_backward_vs_plain(device)
+    infer_launches = phase_slice(device, smi)
+    train_launches = phase_train(device, smi)
+    fwd_launches = infer_launches + train_launches["roi_pool_fwd"]
+    log("kernels", f"roi_pool_fwd launches: inference {infer_launches}, training "
+                   f"{train_launches['roi_pool_fwd']}; roi_pool_bwd launches: training "
+                   f"{train_launches['roi_pool_bwd']}")
+    print(json.dumps({"kernels": [
+        {"name": "roi_pool_fwd", "route": "cuda", "source": "sos_wsod_torch/csrc/roi_pool_fwd.cu",
+         "replaces": "sos_wsod_tpu/ops/pallas/roi_pool_fused.py:240",
+         "launches": fwd_launches, **fwd_times},
+        {"name": "roi_pool_bwd", "route": "cuda", "source": "sos_wsod_torch/csrc/roi_pool_bwd.cu",
+         "replaces": "sos_wsod_tpu/ops/pallas/roi_pool_fused.py:303",
+         "launches": train_launches["roi_pool_bwd"], **bwd_times}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -113,16 +113,45 @@ def get_cfg() -> CfgNode:
         "MODEL": {
             "PIXEL_MEAN": [103.530, 116.280, 123.675],   # BGR
             "PIXEL_STD": [1.0, 1.0, 1.0],
+            "BACKBONE": {"FREEZE_AT": 2},
             "VGG": {"CONV5_DILATION": 1},
             "ROI_HEADS": {"NUM_CLASSES": 80, "SCORE_THRESH_TEST": 0.05,
                           "NMS_THRESH_TEST": 0.5},
             "ROI_BOX_HEAD": {"POOLER_RESOLUTION": 14, "POOLER_TYPE": "ROIAlignV2",
                              "DAN_DIM": [4096, 4096]},
         },
-        "INPUT": {"MIN_SIZE_TEST": 800, "MAX_SIZE_TEST": 1333},
+        "INPUT": {"MIN_SIZE_TRAIN": (800,), "MAX_SIZE_TRAIN": 1333,
+                  "MIN_SIZE_TEST": 800, "MAX_SIZE_TEST": 1333,
+                  "CROP": {"ENABLED": False, "TYPE": "relative_range", "SIZE": [0.9, 0.9]}},
+        "DATASETS": {"PRECOMPUTED_PROPOSAL_TOPK_TRAIN": 2000},
+        "DATALOADER": {"NUM_WORKERS": 4, "ASPECT_RATIO_GROUPING": True},
+        "SOLVER": {
+            "LR_SCHEDULER_NAME": "WarmupMultiStepLR",
+            "MAX_ITER": 40000,
+            "BASE_LR": 0.001,
+            "MOMENTUM": 0.9,
+            "NESTEROV": False,
+            "WEIGHT_DECAY": 0.0001,
+            "GAMMA": 0.1,
+            "STEPS": (30000,),
+            "FACTOR_LIST": (1,),
+            "WARMUP_FACTOR": 1.0 / 1000,
+            "WARMUP_ITERS": 1000,
+            "WARMUP_METHOD": "linear",
+            "IMS_PER_BATCH": 16,
+            "BIAS_LR_FACTOR": 1.0,
+            "WEIGHT_DECAY_BIAS": 0.0001,
+            "REFINE_LR_SCALE": 1.0,
+            "REFINE_SCALE_ON": False,
+            "CLIP_GRADIENTS": {"ENABLED": False, "CLIP_TYPE": "value", "CLIP_VALUE": 1.0},
+        },
         "TEST": {"DETECTIONS_PER_IMAGE": 100},
-        "WSL": {"REFINE_NUM": 3, "REFINE_REG": [False, False, False]},
+        "WSL": {"ITER_SIZE": 1, "MEAN_LOSS": True, "REFINE_NUM": 3,
+                "REFINE_REG": [False, False, False], "REFINE_MIST": False,
+                "MIST_P": 0.10, "MIST_THRE": 0.05, "MIST_TYPE": "nms"},
+        "OICRPLUS": {"BBOX_UPDATE": False},
         # the config files' own namespace for padding and dtype knobs
-        "TPU": {"PROPOSAL_CAPACITY": 4096, "IMAGE_SIZE_DIVISIBILITY": 64,
-                "COMPUTE_DTYPE": "bfloat16"},
+        "TPU": {"PROPOSAL_CAPACITY": 4096, "PROPOSAL_BUCKETS": (), "PGT_SEED_CAPACITY": 1024,
+                "IMAGE_SIZE_DIVISIBILITY": 64, "COMPUTE_DTYPE": "bfloat16"},
+        "SEED": -1,
     })

@@ -9,6 +9,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 # clamp for dw/dh in apply_deltas (d2 box_regression.py:10)
@@ -63,3 +64,38 @@ def apply_deltas(
     out = torch.stack(
         [pcx - 0.5 * pw, pcy - 0.5 * ph, pcx + 0.5 * pw, pcy + 0.5 * ph], dim=-1)
     return out.reshape(n, k4)
+
+
+def get_deltas(
+    src_boxes: torch.Tensor,
+    target_boxes: torch.Tensor,
+    weights: Tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0),
+) -> torch.Tensor:
+    """Encode target boxes relative to src boxes, (N, 4), (N, 4) -> (N, 4),
+    as d2's Box2BoxTransform.get_deltas. Degenerate widths or heights
+    (<= 0) are taken as 1.0 instead of asserting: padded slots carry dummy
+    boxes and the loss masks them."""
+    wx, wy, ww, wh = weights
+
+    def wh_ctr(b):
+        w = b[..., 2] - b[..., 0]
+        h = b[..., 3] - b[..., 1]
+        w = torch.where(w > 0, w, torch.ones_like(w))
+        h = torch.where(h > 0, h, torch.ones_like(h))
+        return w, h, b[..., 0] + 0.5 * w, b[..., 1] + 0.5 * h
+
+    sw, sh, scx, scy = wh_ctr(src_boxes)
+    tw, th, tcx, tcy = wh_ctr(target_boxes)
+    return torch.stack([wx * (tcx - scx) / sw, wy * (tcy - scy) / sh,
+                        ww * torch.log(tw / sw), wh * torch.log(th / sh)], dim=-1)
+
+
+def unique_boxes_keep_mask(boxes: np.ndarray, scale: float = 1.0) -> np.ndarray:
+    """Host-side keep mask of the first occurrence of each box, by d2-WSL's
+    Boxes.unique_boxes hash: round(box * scale) . [1, 1e3, 1e6, 1e9]."""
+    v = np.array([1.0, 1e3, 1e6, 1e9])
+    hashes = np.round(np.asarray(boxes, dtype=np.float64) * scale).dot(v).astype(np.int64)
+    _, index = np.unique(hashes, return_index=True)
+    keep = np.zeros(boxes.shape[0], dtype=bool)
+    keep[np.sort(index)] = True
+    return keep

@@ -1,5 +1,6 @@
-"""Random weights and synthetic test samples, for runs without a checkpoint
-or a dataset (the GPU smoke run and the inference profile).
+"""Random weights, synthetic test samples and synthetic training dataset
+dicts, for runs without a checkpoint or a dataset (the GPU smoke run, the
+inference profile and the tests).
 
 Everything is made with numpy from a seed: the same seed gives the same
 weights, images and proposals on any machine.
@@ -94,18 +95,56 @@ def synthetic_test_samples(cfg, n: int, raw_hw: Tuple[int, int], num_proposals: 
     return samples, annotations
 
 
+def synthetic_train_dicts(n: int, raw_hw: Tuple[int, int], num_proposals: int,
+                          num_classes: int, seed: int) -> List[dict]:
+    """``n`` training dataset dicts as the stage-1 loader reads them: a
+    random (H, W, 3) uint8 BGR ``image`` of ``raw_hw``, ``num_proposals``
+    random proposals of at least 8 px with objectness logits in [0, 1), and
+    1-3 distinct image-level classes as annotations."""
+    rng = np.random.RandomState(seed)
+    h, w = raw_hw
+    dicts = []
+    for i in range(n):
+        x1 = rng.uniform(0, w - 8, num_proposals)
+        y1 = rng.uniform(0, h - 8, num_proposals)
+        boxes = np.stack([x1, y1, np.minimum(x1 + rng.uniform(8, w / 2, num_proposals), w),
+                          np.minimum(y1 + rng.uniform(8, h / 2, num_proposals), h)], 1)
+        classes = rng.choice(num_classes, rng.randint(1, 4), replace=False)
+        dicts.append({
+            "image_id": 2000 + i,
+            "image": rng.randint(0, 256, (h, w, 3)).astype(np.uint8),
+            "proposal_boxes": boxes.astype(np.float32),
+            "proposal_objectness_logits": rng.uniform(0, 1, num_proposals).astype(np.float32),
+            "annotations": [{"category_id": int(c), "bbox": [0.0, 0.0, float(w), float(h)],
+                             "iscrowd": 0} for c in classes],
+        })
+    return dicts
+
+
+def load_config(config_file: str, opts: Sequence = ()):
+    """``config_file`` merged over the defaults, then the overrides ``opts``."""
+    cfg = get_cfg()
+    cfg.merge_from_file(config_file)
+    cfg.merge_from_list(list(opts))
+    return cfg
+
+
+def build_synthetic_model(cfg, device, seed: int) -> MultiInputRCNN:
+    """The model of ``cfg`` with random weights from ``seed`` on ``device``,
+    in eval mode."""
+    model = MultiInputRCNN.from_cfg(cfg, device="meta")
+    blobs = random_d2_wsl_blobs(seed, cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.WSL.REFINE_NUM,
+                                cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)
+    return load_weights(model, state_dict_from_d2_wsl(blobs), device)
+
+
 def build_synthetic_slice(config_file: str, device, num_images: int,
                           raw_hw: Tuple[int, int], num_proposals: int, seed: int,
                           opts: Sequence = ()):
     """The model of ``config_file`` (with the overrides ``opts``) with random
     weights from ``seed`` on ``device``, and ``num_images`` synthetic samples
     with their annotations. Returns (cfg, model, samples, annotations)."""
-    cfg = get_cfg()
-    cfg.merge_from_file(config_file)
-    cfg.merge_from_list(list(opts))
-    model = MultiInputRCNN.from_cfg(cfg, device="meta")
-    blobs = random_d2_wsl_blobs(seed, cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.WSL.REFINE_NUM,
-                                cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)
-    model = load_weights(model, state_dict_from_d2_wsl(blobs), device)
+    cfg = load_config(config_file, opts)
+    model = build_synthetic_model(cfg, device, seed)
     samples, annotations = synthetic_test_samples(cfg, num_images, raw_hw, num_proposals, seed)
     return cfg, model, samples, annotations

@@ -17,7 +17,7 @@ from .build import build
 
 launches = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,16 +30,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
+def check_arg(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``; ``fn`` names the wrapper in the message."""
     if t.device != device:
-        raise ValueError(f"roi_pool_fwd_cuda: {name} is on {t.device}, expected {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise ValueError(f"roi_pool_fwd_cuda: {name} has dtype {t.dtype}, expected {dtype}")
+        raise ValueError(f"{fn}: {name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"roi_pool_fwd_cuda: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"roi_pool_fwd_cuda: {name} is not contiguous")
+        raise ValueError(f"{fn}: {name} is not contiguous")
 
 
 def roi_pool_fwd_cuda(feat: torch.Tensor, hs: torch.Tensor, he: torch.Tensor,
@@ -54,7 +55,7 @@ def roi_pool_fwd_cuda(feat: torch.Tensor, hs: torch.Tensor, he: torch.Tensor,
     global launches
     if not feat.is_cuda:
         raise ValueError(f"roi_pool_fwd_cuda: feat must be a CUDA tensor, got {feat.device}")
-    if feat.dtype not in _DTYPES:
+    if feat.dtype not in DTYPES:
         raise ValueError(f"roi_pool_fwd_cuda: unsupported feature dtype {feat.dtype}")
     if feat.dim() != 3 or not feat.is_contiguous():
         raise ValueError("roi_pool_fwd_cuda: feat must be a contiguous (H, W, C) tensor")
@@ -64,10 +65,10 @@ def roi_pool_fwd_cuda(feat: torch.Tensor, hs: torch.Tensor, he: torch.Tensor,
     dev = feat.device
     for name, t, shape in (("hs", hs, (p, ph)), ("he", he, (p, ph)),
                            ("ws", ws, (p, pw)), ("we", we, (p, pw))):
-        _check(name, t, torch.int32, shape, dev)
-    _check("valid", valid, torch.bool, (p,), dev)
+        check_arg("roi_pool_fwd_cuda", name, t, torch.int32, shape, dev)
+    check_arg("roi_pool_fwd_cuda", "valid", valid, torch.bool, (p,), dev)
     if row_scale is not None:
-        _check("row_scale", row_scale, torch.float32, (p,), dev)
+        check_arg("roi_pool_fwd_cuda", "row_scale", row_scale, torch.float32, (p,), dev)
     if h * w >= 2**31 or p * ph * pw >= 2**31 or ph > 65535:
         raise ValueError("roi_pool_fwd_cuda: shape exceeds the kernel's index range")
 
@@ -79,7 +80,7 @@ def roi_pool_fwd_cuda(feat: torch.Tensor, hs: torch.Tensor, he: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sos_roi_pool_fwd(
-            _DTYPES[feat.dtype], feat.data_ptr(), h, w, c,
+            DTYPES[feat.dtype], feat.data_ptr(), h, w, c,
             hs.data_ptr(), he.data_ptr(), ws.data_ptr(), we.data_ptr(),
             valid.data_ptr(), None if row_scale is None else row_scale.data_ptr(),
             p, ph, pw, out.data_ptr(), None if pos is None else pos.data_ptr(), stream)

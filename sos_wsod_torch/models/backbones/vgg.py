@@ -10,6 +10,10 @@ Features beyond each stage's valid extent are zeroed, so a padded canvas gives
 the features of the unpadded image up to the convs' zero-padding convention.
 Run in ``torch.channels_last``: then ``plain5.permute(0, 2, 3, 1)`` is already
 a contiguous NHWC tensor.
+
+``freeze_at=2`` freezes plain1 and plain2: their parameters do not require
+grad (the JAX package gives them lr 0 and weight decay 0) and the autograd
+graph is cut after plain{freeze_at}, where JAX stops the gradient.
 """
 from __future__ import annotations
 
@@ -59,8 +63,9 @@ def _mask_padding(x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
 class VGG16(nn.Module):
     """Returns the 'plain5' feature map, NCHW shape in channels_last memory."""
 
-    def __init__(self, conv5_dilation: int = 2, device=None):
+    def __init__(self, conv5_dilation: int = 2, freeze_at: int = 2, device=None):
         super().__init__()
+        self.freeze_at = freeze_at
         p4_pool = 1 if conv5_dilation == 2 else 2
         spec = [  # (name, in, out, num_conv, dilation, pool)
             ("plain1", 3, 64, 2, 1, 2),
@@ -72,14 +77,18 @@ class VGG16(nn.Module):
         self.stage_names = [s[0] for s in spec]
         for name, cin, cout, n, dil, pool in spec:
             self.add_module(name, PlainStage(cin, cout, n, dil, pool, device=device))
+        for name in self.stage_names[:freeze_at]:
+            getattr(self, name).requires_grad_(False)
 
     def forward(self, x: torch.Tensor, valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (N, 3, H, W) BGR mean-subtracted; valid_hw: (N, 2) true extents."""
         v = valid_hw
-        for name in self.stage_names:
+        for i, name in enumerate(self.stage_names, start=1):
             stage = getattr(self, name)
             x = stage(x)
             if v is not None:
                 v = _stage_valid(v, stage.pool_stride)
                 x = _mask_padding(x, v)
+            if i == self.freeze_at:
+                x = x.detach()
         return x

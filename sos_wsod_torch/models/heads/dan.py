@@ -4,11 +4,13 @@ Counterpart of ``sos_wsod_tpu/models/heads/dan.py`` for the OICR+ config (no
 convs): flatten the channels-last pooled ROIs in (h, w, c) order, then
 FC -> ReLU -> Dropout per entry of ``fc_dims``. fc1's input rows are in
 (h, w, c) order; ``engine.weights`` permutes torch/caffe (c, h, w) weights
-to match.
+to match. Dropout runs in training mode only, with its masks drawn from the
+``generator`` the caller passes (the trainer's seeded one), else from
+PyTorch's default generator.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -23,11 +25,17 @@ class DAN(nn.Module):
         for i in range(len(fc_dims)):
             self.add_module(f"fc{i + 1}", nn.Linear(dims[i], dims[i + 1], device=device))
         self.num_fc = len(fc_dims)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.dropout_rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout_rate
+        return x * keep.to(x.dtype) * (1.0 / (1.0 - self.dropout_rate))
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (P, PH, PW, C) -> (P, fc_dims[-1])."""
         x = x.reshape(x.shape[0], -1)
         for i in range(self.num_fc):
-            x = self.dropout(F.relu(getattr(self, f"fc{i + 1}")(x)))
+            x = self._dropout(F.relu(getattr(self, f"fc{i + 1}")(x)), generator)
         return x

@@ -17,6 +17,14 @@ argmax-key path) and of the Pallas kernel
 
 ``bin_windows`` computes the integer bin bounds once; the plain version here
 and the CUDA kernel (``kernels/roi_pool.py``) both consume them.
+
+Backward (the VJP of ``roi_pool_fused``): the cotangent times the row scale,
+rounded to the feature dtype and widened to f32, is scattered to ``pos`` in
+an f32 (H, W, C) accumulator and cast to the feature dtype. Ties therefore
+route to the first hit. ``boxes``, ``valid`` and ``row_scale`` get no
+gradient: objectness is input data. ``RoIPoolFunction`` saves the forward's
+``pos`` (4096 x 49 x 512 int32 = 411 MB a view at full width) instead of
+re-running the forward as the JAX VJP does.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels.roi_pool import roi_pool_fwd_cuda
+from ..kernels.roi_pool_bwd import roi_pool_bwd_cuda
 
 
 def _bin_bounds(start: torch.Tensor, size: torch.Tensor, pooled: int, limit: int):
@@ -102,6 +111,56 @@ def roi_pool_reference(feat: torch.Tensor, hs, he, ws, we, valid,
     return out, pos
 
 
+def roi_pool_backward_reference(g: torch.Tensor, pos: torch.Tensor,
+                                rs: Optional[torch.Tensor], h: int, w: int) -> torch.Tensor:
+    """Plain PyTorch ROIPool backward: g (P, PH, PW, C) times rs (P,) (or
+    no scale), added at pos (P, PH, PW, C) int32 into a zeroed f32 (h, w, C)
+    accumulator; entries with pos < 0 add nothing. Returns the accumulator."""
+    c = g.shape[-1]
+    gp = g.float()
+    if rs is not None:
+        gp = gp * rs[:, None, None, None]
+    ch = torch.arange(c, dtype=torch.int64, device=g.device)
+    flat = torch.where(pos >= 0, pos.long() * c + ch, h * w * c)   # a trash slot at the end
+    acc = torch.zeros(h * w * c + 1, dtype=torch.float32, device=g.device)
+    acc.index_add_(0, flat.reshape(-1), gp.reshape(-1))
+    return acc[:-1].reshape(h, w, c)
+
+
+def _pool_forward(feat, win, valid, row_scale, return_argmax):
+    if feat.is_cuda:
+        return roi_pool_fwd_cuda(feat, *win, valid, row_scale, return_argmax=return_argmax)
+    if feat.device.type == "cpu":
+        return roi_pool_reference(feat, *win, valid, row_scale)
+    raise ValueError(f"roi_pool: no implementation for device {feat.device}")
+
+
+class RoIPoolFunction(torch.autograd.Function):
+    """ROIPool with the first-hit backward; only ``feat`` gets a gradient."""
+
+    @staticmethod
+    def forward(ctx, feat, hs, he, ws, we, valid, row_scale):
+        out, pos = _pool_forward(feat, (hs, he, ws, we), valid, row_scale, True)
+        rs = None if row_scale is None else row_scale.to(feat.dtype).float()
+        ctx.save_for_backward(pos, rs)
+        ctx.feat_shape, ctx.feat_dtype = feat.shape, feat.dtype
+        ctx.mark_non_differentiable(pos)
+        return out, pos
+
+    @staticmethod
+    def backward(ctx, g, _g_pos):
+        pos, rs = ctx.saved_tensors
+        h, w, _ = ctx.feat_shape
+        g = g.contiguous()
+        if g.is_cuda:
+            acc = roi_pool_bwd_cuda(g, pos, rs, h, w)
+        elif g.device.type == "cpu":
+            acc = roi_pool_backward_reference(g, pos, rs, h, w)
+        else:
+            raise ValueError(f"roi_pool backward: no implementation for device {g.device}")
+        return acc.to(ctx.feat_dtype), None, None, None, None, None, None
+
+
 def roi_pool(feat_hwc: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
              row_scale: Optional[torch.Tensor] = None, *,
              spatial_scale: float,
@@ -111,17 +170,16 @@ def roi_pool(feat_hwc: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
 
     boxes (P, 4) XYXY image coords; valid (P,) bool; row_scale optional (P,)
     per-ROI scale (the objectness weighting), cast to the feature dtype before
-    the multiply. A CPU ``feat_hwc`` runs the plain version; a CUDA one runs
-    the hand-written kernel and raises if it cannot. With ``return_argmax``
-    also returns the int32 first-hit positions."""
+    the multiply. A CPU ``feat_hwc`` runs the plain versions; a CUDA one runs
+    the hand-written kernels and raises if it cannot. When ``feat_hwc``
+    needs a gradient the pool is a ``RoIPoolFunction`` (forward and backward
+    kernels). With ``return_argmax`` also returns the int32 first-hit
+    positions."""
     h, w, _ = feat_hwc.shape
     ph_out, pw_out = output_size
-    hs, he, ws, we = bin_windows(boxes, valid, h, w, ph_out, pw_out, spatial_scale)
-    if feat_hwc.is_cuda:
-        out, pos = roi_pool_fwd_cuda(feat_hwc, hs, he, ws, we, valid, row_scale,
-                                     return_argmax=return_argmax)
-    elif feat_hwc.device.type == "cpu":
-        out, pos = roi_pool_reference(feat_hwc, hs, he, ws, we, valid, row_scale)
+    win = bin_windows(boxes, valid, h, w, ph_out, pw_out, spatial_scale)
+    if feat_hwc.requires_grad and torch.is_grad_enabled():
+        out, pos = RoIPoolFunction.apply(feat_hwc, *win, valid, row_scale)
     else:
-        raise ValueError(f"roi_pool: no implementation for device {feat_hwc.device}")
+        out, pos = _pool_forward(feat_hwc, win, valid, row_scale, return_argmax)
     return (out, pos) if return_argmax else out

@@ -40,6 +40,20 @@ with tempfile.TemporaryDirectory() as tmp:
     dets = json.load(open(tmp + "/voc_2007_test.json"))
 assert {d["image_id"] for d in dets} == {1000, 1001}, dets[:3]
 
+# the training path chip_smoke drives: synthetic dicts -> mapper -> stream
+# -> Stage1Trainer, one step at a small size on the CPU
+from sos_wsod_torch.data.build import batched_stream
+from sos_wsod_torch.data.mapper_multi import DatasetMapperMultiInput
+from sos_wsod_torch.engine.synthetic import build_synthetic_model, load_config, synthetic_train_dicts
+from sos_wsod_torch.engine.trainer import Stage1Trainer
+cfg = load_config(str(smoke["CONFIG"]), opts + ["INPUT.MIN_SIZE_TRAIN", (40, 48),
+                  "TPU.PGT_SEED_CAPACITY", 16, "SOLVER.IMS_PER_BATCH", 1])
+stream = batched_stream(synthetic_train_dicts(2, (50, 70), 30, 20, 0),
+                        DatasetMapperMultiInput.from_cfg(cfg), 1)
+trainer = Stage1Trainer(cfg, build_synthetic_model(cfg, "cpu", 0), stream)
+trainer.train(0, 1)
+assert "loss_cls_r3" in trainer.storage.histories(), sorted(trainer.storage.histories())
+
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad
@@ -49,13 +63,14 @@ print(len(names))
 
 def test_port_and_chip_smoke_import_without_jax():
     """Every sos_wsod_torch module, chip_smoke.py and the profile tool import
-    with jax, flax and the JAX package blocked, and the host path that
-    chip_smoke drives (config, synthetic samples, weights, inference, the
-    evaluator's JSON) runs at a small size on the CPU."""
+    with jax, flax and the JAX package blocked, and the host paths that
+    chip_smoke drives run at a small size on the CPU: inference (config,
+    synthetic samples, weights, the evaluator's JSON) and one training step
+    (synthetic dicts, the 4-view mapper, the batched stream, the trainer)."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 25
+    assert int(proc.stdout.split()[-1]) >= 35
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

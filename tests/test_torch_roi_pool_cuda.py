@@ -1,11 +1,15 @@
-"""The CUDA ROIPool kernel (sos_wsod_torch/csrc/roi_pool_fwd.cu) against its
-plain PyTorch version, on the card. Marked ``cuda``: skipped where
-torch.cuda.is_available() is false. On the card:
+"""The CUDA ROIPool kernels (sos_wsod_torch/csrc/roi_pool_fwd.cu and
+roi_pool_bwd.cu) against their plain PyTorch versions, on the card. Marked
+``cuda``: skipped where torch.cuda.is_available() is false. On the card:
 
     python -m pytest tests/test_torch_roi_pool_cuda.py -q
 
-Max pooling selects an input value and the scale multiply is one rounding of
-an exact product, so kernel and plain version must agree bit for bit.
+Forward: max pooling selects an input value and the scale multiply is one
+rounding of an exact product, so kernel and plain version agree bit for bit.
+Backward: both add the same f32 products, the kernel with atomics in an order
+that changes from run to run, so the accumulators agree to f32 rounding of
+sums of up to a few hundred terms (rtol 1e-5, atol 1e-5), and exactly where
+every term is an integer.
 """
 from __future__ import annotations
 
@@ -14,7 +18,13 @@ import pytest
 import torch
 
 from sos_wsod_torch.kernels import roi_pool as kernel
-from sos_wsod_torch.ops.roi_pool import bin_windows, roi_pool, roi_pool_reference
+from sos_wsod_torch.kernels import roi_pool_bwd as bwd_kernel
+from sos_wsod_torch.ops.roi_pool import (
+    bin_windows,
+    roi_pool,
+    roi_pool_backward_reference,
+    roi_pool_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +97,55 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         kernel.roi_pool_fwd_cuda(feat, *win, valid, rs.double())
     with pytest.raises(ValueError, match="on cpu"):
         kernel.roi_pool_fwd_cuda(feat, *win, valid.cpu(), rs)
+
+
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hwc", [(9, 13, 1), (20, 33, 3), (35, 44, 200), (40, 64, 512)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_backward_kernel_matches_plain(device, g_dtype, hwc, ties):
+    h, w, c = hwc
+    feat, boxes, valid, rs = _inputs(device, h, w, c, 37, g_dtype, ties=ties)
+    win = bin_windows(boxes, valid, h, w, 7, 7, 0.125)
+    _, pos = kernel.roi_pool_fwd_cuda(feat, *win, valid, rs)
+    g = torch.randn(pos.shape, generator=torch.Generator(device).manual_seed(1),
+                    device=device).to(g_dtype)
+    rs_t = rs.to(g_dtype).float()
+    for scale in (None, rs_t):
+        acc_k = bwd_kernel.roi_pool_bwd_cuda(g, pos, scale, h, w)
+        acc_p = roi_pool_backward_reference(g, pos, scale, h, w)
+        torch.cuda.synchronize()
+        assert acc_k.dtype == torch.float32 and acc_k.shape == (h, w, c)
+        torch.testing.assert_close(acc_k, acc_p, rtol=1e-5, atol=1e-5)
+    ones = torch.ones_like(g)
+    assert torch.equal(bwd_kernel.roi_pool_bwd_cuda(ones, pos, None, h, w),
+                       roi_pool_backward_reference(ones, pos, None, h, w))
+
+
+def test_backward_kernel_empty_and_rejects(device):
+    g = torch.zeros((0, 7, 7, 16), device=device)
+    pos = torch.zeros((0, 7, 7, 16), dtype=torch.int32, device=device)
+    before = bwd_kernel.launches
+    acc = bwd_kernel.roi_pool_bwd_cuda(g, pos, None, 5, 6)
+    assert acc.shape == (5, 6, 16) and not acc.any() and bwd_kernel.launches == before
+    g = torch.zeros((2, 7, 7, 16), device=device)
+    with pytest.raises(ValueError, match="dtype"):
+        bwd_kernel.roi_pool_bwd_cuda(g.half(), pos[:0].new_zeros(g.shape), None, 5, 6)
+    with pytest.raises(ValueError, match="pos"):
+        bwd_kernel.roi_pool_bwd_cuda(g, pos.new_zeros((2, 7, 7, 8)), None, 5, 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        bwd_kernel.roi_pool_bwd_cuda(g.cpu(), pos.cpu(), None, 5, 6)
+
+
+def test_autograd_goes_through_both_kernels(device):
+    """A feature map that needs a gradient runs the forward and backward
+    kernels once each, and its bf16 gradient equals the CPU path's up to the
+    atomics' sum order (one bf16 rounding of sums within 1e-5)."""
+    feat, boxes, valid, rs = _inputs(device, 16, 24, 64, 10, torch.bfloat16)
+    g = torch.randn((10, 7, 7, 64), device=device).bfloat16()
+    f, fc = feat.clone().requires_grad_(True), feat.cpu().requires_grad_(True)
+    fwd0, bwd0 = kernel.launches, bwd_kernel.launches
+    roi_pool(f, boxes, valid, rs, spatial_scale=0.125).backward(g)
+    assert (kernel.launches, bwd_kernel.launches) == (fwd0 + 1, bwd0 + 1)
+    roi_pool(fc, boxes.cpu(), valid.cpu(), rs.cpu(), spatial_scale=0.125).backward(g.cpu())
+    assert f.grad.dtype == torch.bfloat16 and f.grad.is_contiguous()
+    torch.testing.assert_close(f.grad.cpu().float(), fc.grad.float(), rtol=2 ** -7, atol=1e-5)
