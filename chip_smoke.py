@@ -32,7 +32,20 @@ Phases, one line each; any failure raises and the script exits non-zero:
      trained weights moved and frozen ones unchanged, and one step's bf16
      losses against f32 (dropout off); prints step times, canvases, peak
      memory, and over 2 warm profiled steps the device time of each profiler
-     range and the NMS fixpoint iterations of each mining round.
+     range and the NMS fixpoint iterations of each mining round;
+  7. gather: the row-gather microbenchmark (python -m
+     sos_wsod_torch.tools.bench_gather) at its default shape, 2^20 random
+     rows of 512 bf16 from a 2,871,180-row table, the kernel bit-identical
+     to index_select, with median CUDA-event times of both; then a ragged
+     row count (2^20 - 37) and f32 at 2^18 rows, bit-identical;
+  8. CLI: a synthetic VOC tree on disk (8 train, 4 val, 4 test 375x500
+     JPEGs with XMLs and 4000 proposals each in detectron2 pickles) through
+     the stage-1 CLI (sos_wsod_torch.tools.train_net_stage1.main, in this
+     process) at full width: 4 steps with checkpoints every 2 and evals
+     every 2, then --resume to 6 steps, then --eval-only writing the
+     detection-result JSON; checks the files, the eval scalars, the resumed
+     iterations, the strict checkpoint load, the JSON and the kernel
+     launches of each step and eval, and prints step times.
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the inference throughput baseline.
@@ -42,6 +55,8 @@ Then one JSON line with the kernels, the card's line and, last,
 from __future__ import annotations
 
 import json
+import logging
+import os
 import pathlib
 import statistics
 import subprocess
@@ -63,7 +78,9 @@ RAW_HW = (375, 500)            # a typical VOC07 image
 NUM_IMAGES = 4
 TRAIN_STEPS = 4
 SEED = 0
-KERNELS = ("roi_pool_fwd", "roi_pool_bwd")
+KERNELS = ("roi_pool_fwd", "roi_pool_bwd", "gather_rows")
+GATHER_TABLE_ROWS, GATHER_C = 2871180, 512
+CLI_SPLITS = (("train", 8), ("val", 4), ("test", 4))
 RANGES = ("h2d", "backbone", "roi_pool", "box_head", "mining", "losses", "backward",
           "optimizer")
 
@@ -506,6 +523,172 @@ def phase_train(device, smi: str) -> dict:
     return launches
 
 
+def phase_gather(device) -> dict:
+    """Kernel B's main path, the microbenchmark tool at its default shape
+    (which checks bit-identity itself), then the ragged and f32 checks."""
+    from sos_wsod_torch.kernels import gather_rows as kernel
+    from sos_wsod_torch.tools import bench_gather
+
+    kernel.launches = 0
+    res = bench_gather.main([])
+    launches = kernel.launches
+    log("gather", f"bench_gather defaults (table {GATHER_TABLE_ROWS} x {GATHER_C} bf16, 2^20 "
+                  f"rows, blk 512): bit-identical to index_select; kernel {res['ms']:.3f} ms "
+                  f"{res['gbs']:.1f} GB/s, index_select {res['plain_ms']:.3f} ms "
+                  f"{res['plain_gbs']:.1f} GB/s; {launches} launches")
+    for rows, dtype in (((1 << 20) - 37, torch.bfloat16), (1 << 18, torch.float32)):
+        table, idx = bench_gather.make_inputs(GATHER_TABLE_ROWS, rows, GATHER_C, dtype, device,
+                                              SEED + 1)
+        bench_gather.check(table, idx, 512)
+        log("gather", f"{rows} rows {str(dtype)[6:]}: bit-identical to index_select")
+        del table, idx
+    return {"launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"]}
+
+
+class _LogRecords(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_cli(smi: str) -> dict:
+    """The stage-1 CLI on a synthetic VOC tree: train, resume, eval-only.
+    Returns the kernel launches of its training steps and evals."""
+    from sos_wsod_torch.engine.defaults import default_argument_parser
+    from sos_wsod_torch.engine.synthetic import write_synthetic_voc
+    from sos_wsod_torch.kernels import roi_pool as fwd, roi_pool_bwd as bwd
+    from sos_wsod_torch.models.meta.rcnn_wsl import MultiInputRCNN
+    from sos_wsod_torch.tools import train_net_stage1 as cli
+
+    cli_trainer = cli.Stage1Trainer
+
+    class ProbeTrainer(cli_trainer):
+        """The CLI's trainer, timing each step on the card and recording
+        its image ids and kernel launches."""
+        runs = []
+
+        def __init__(self, cfg, model, data_iter):
+            self.step_ms, self.image_ids, self.step_launches = [], [], []
+
+            def record(stream):
+                try:
+                    for batch in stream:
+                        self.image_ids.append([s["image_id"] for s in batch])
+                        yield batch
+                finally:
+                    stream.close()
+
+            super().__init__(cfg, model, record(data_iter))
+            ProbeTrainer.runs.append(self)
+
+        def run_step(self):
+            torch.cuda.synchronize()
+            t0, counts = time.perf_counter(), (fwd.launches, bwd.launches)
+            super().run_step()
+            torch.cuda.synchronize()
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            self.step_launches.append((fwd.launches - counts[0], bwd.launches - counts[1]))
+
+    records = _LogRecords()
+    root = logging.getLogger()
+    saved = (root.handlers[:], root.level)
+    logging.getLogger(cli.__name__).addHandler(records)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ids = write_synthetic_voc(tmp, CLI_SPLITS, RAW_HW, NUM_PROPOSALS, SEED)
+        log("cli", f"synthetic VOC tree {dict(CLI_SPLITS)} of {RAW_HW} with {NUM_PROPOSALS} "
+                   f"proposals each written in {time.perf_counter() - t0:.1f} s")
+        os.chdir(tmp)
+        cli.Stage1Trainer = ProbeTrainer
+        try:
+            def run(flags, *opts):
+                args = default_argument_parser().parse_args(
+                    ["--config-file", str(CONFIG), *flags, "SOLVER.IMS_PER_BATCH", "1",
+                     "SOLVER.CHECKPOINT_PERIOD", "2", "TEST.EVAL_PERIOD", "2",
+                     "OUTPUT_DIR", "output", *opts])
+                counts = (fwd.launches, bwd.launches)
+                t0 = time.perf_counter()
+                out = cli.main(args)
+                torch.cuda.synchronize()
+                return (out, time.perf_counter() - t0,
+                        (fwd.launches - counts[0], bwd.launches - counts[1]))
+
+            fwd.launches = bwd.launches = 0
+            trainer, secs_a, launches_a = run([], "SOLVER.MAX_ITER", "4")
+            trainer_b, secs_b, launches_b = run(["--resume"], "SOLVER.MAX_ITER", "6")
+            results, secs_c, launches_c = run(["--eval-only"],
+                                              "WSODEVAL.SAVE_DETECTION_RESULT", "True")
+            launches = {"roi_pool_fwd": fwd.launches, "roi_pool_bwd": bwd.launches}
+            out = pathlib.Path("output")
+            files = sorted(p.name for p in out.iterdir())
+            last = (out / "last_checkpoint").read_text().strip()
+            dets = json.loads((out / "detection_results" / "oicr_plus_voc_2007_test.json")
+                              .read_text())
+            ckpt_keys = set(torch.load(out / last, map_location="cpu", weights_only=True)["model"])
+            model_keys = set(MultiInputRCNN.from_cfg(trainer.cfg, device="meta").state_dict())
+        finally:
+            cli.Stage1Trainer = cli_trainer
+            os.chdir(cwd)
+            logging.getLogger(cli.__name__).removeHandler(records)
+            for h in root.handlers:
+                if h not in saved[0]:
+                    h.close()
+            root.handlers[:], root.level = saved
+
+    # (a) training: checkpoints, metrics, both evals' flattened scalars
+    want = {"model_0000001.pth", "model_0000003.pth", "model_final.pth", "last_checkpoint",
+            "metrics.json"}
+    if not want <= set(files):
+        raise AssertionError(f"training left {files}, missing {want - set(files)}")
+    evals = {k: h.values() for k, h in trainer.storage.histories().items()
+             if k.startswith("voc_2007_test/")}
+    if "voc_2007_test/bbox/AP50" not in evals or any(
+            [it for _, it in v] != [1, 4] or not np.isfinite([x for x, _ in v]).all()
+            for v in evals.values()):
+        raise AssertionError(f"eval scalars (value, iteration): {evals}")
+    # (b) resume: from iteration 4 to 6, the data stream from its start
+    run_a, run_b = ProbeTrainer.runs
+    if (trainer_b.start_iter, trainer_b.iter, len(run_b.step_ms)) != (4, 6, 2):
+        raise AssertionError(f"resume ran {trainer_b.start_iter}..{trainer_b.iter} in "
+                             f"{len(run_b.step_ms)} steps")
+    if run_b.image_ids[0] != run_a.image_ids[0] or "model_0000005.pth" not in files:
+        raise AssertionError(f"resumed stream {run_b.image_ids} vs {run_a.image_ids}; {files}")
+    # (c) eval-only: the checkpoint named by last_checkpoint, strict keys, the JSON
+    loaded = [m for m in records.messages if m.startswith("Loaded the model of")]
+    if len(loaded) != 1 or f"{os.sep}output{os.sep}{last} (iteration 6)" not in loaded[0]:
+        raise AssertionError(f"eval-only loaded {loaded}, last_checkpoint {last}")
+    if ckpt_keys != model_keys:
+        raise AssertionError(f"checkpoint keys: missing {model_keys - ckpt_keys}, unexpected "
+                             f"{ckpt_keys - model_keys}")
+    vals = np.array([[d["score"], *d["bbox"]] for d in dets], np.float64)
+    test_ids = {int(i) for i in ids["test"]}
+    if not dets or not np.isfinite(vals).all() or {d["image_id"] for d in dets} != test_ids \
+            or not all(1 <= d["category_id"] <= 20 for d in dets):
+        raise AssertionError(f"detection JSON: {len(dets)} records, images "
+                             f"{sorted({d['image_id'] for d in dets})} vs {sorted(test_ids)}")
+    # (d) kernel launches: 4 + 4 per training step, 1 forward per eval image
+    n_test = dict(CLI_SPLITS)["test"]
+    steps = run_a.step_launches + run_b.step_launches
+    expect = [(4 * 4 + 2 * n_test, 4 * 4), (2 * 4 + n_test, 2 * 4), (n_test, 0)]
+    if steps != [(4, 4)] * 6 or [launches_a, launches_b, launches_c] != expect:
+        raise AssertionError(f"kernel launches per step {steps}, per run "
+                             f"{[launches_a, launches_b, launches_c]} (expected {expect})")
+    ap = results["voc_2007_test"]["bbox"]["AP50"]
+    log("cli", f"train 4 steps + 2 evals in {secs_a:.1f} s, step ms "
+               f"{[round(t, 1) for t in run_a.step_ms]}; resume from iteration 4 (stream from "
+               f"its start, images {run_b.image_ids[0]}) 2 steps + 1 eval in {secs_b:.1f} s, "
+               f"step ms {[round(t, 1) for t in run_b.step_ms]}; files {files}")
+    log("cli", f"eval-only loaded {last} (strict: no missing or unexpected keys) in "
+               f"{secs_c:.1f} s: {len(dets)} detections, AP50 {ap:.3f}; ROIPool launches fwd/bwd "
+               f"train+evals {launches_a}, resume {launches_b}, eval-only {launches_c} on {smi}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     device = torch.device("cuda", 0)
@@ -517,17 +700,25 @@ def main() -> int:
     bwd_times = phase_backward_vs_plain(device)
     infer_launches = phase_slice(device, smi)
     train_launches = phase_train(device, smi)
-    fwd_launches = infer_launches + train_launches["roi_pool_fwd"]
+    gather = phase_gather(device)
+    cli_launches = phase_cli(smi)
+    fwd_launches = (infer_launches + train_launches["roi_pool_fwd"]
+                    + cli_launches["roi_pool_fwd"])
+    bwd_launches = train_launches["roi_pool_bwd"] + cli_launches["roi_pool_bwd"]
     log("kernels", f"roi_pool_fwd launches: inference {infer_launches}, training "
-                   f"{train_launches['roi_pool_fwd']}; roi_pool_bwd launches: training "
-                   f"{train_launches['roi_pool_bwd']}")
+                   f"{train_launches['roi_pool_fwd']}, CLI {cli_launches['roi_pool_fwd']}; "
+                   f"roi_pool_bwd launches: training {train_launches['roi_pool_bwd']}, CLI "
+                   f"{cli_launches['roi_pool_bwd']}; gather_rows launches: bench_gather "
+                   f"{gather['launches']}")
     print(json.dumps({"kernels": [
         {"name": "roi_pool_fwd", "route": "cuda", "source": "sos_wsod_torch/csrc/roi_pool_fwd.cu",
          "replaces": "sos_wsod_tpu/ops/pallas/roi_pool_fused.py:240",
          "launches": fwd_launches, **fwd_times},
         {"name": "roi_pool_bwd", "route": "cuda", "source": "sos_wsod_torch/csrc/roi_pool_bwd.cu",
          "replaces": "sos_wsod_tpu/ops/pallas/roi_pool_fused.py:303",
-         "launches": train_launches["roi_pool_bwd"], **bwd_times}]}))
+         "launches": bwd_launches, **bwd_times},
+        {"name": "gather_rows", "route": "cuda", "source": "sos_wsod_torch/csrc/gather_rows.cu",
+         "replaces": "tools/bench_pallas_gather.py:68", **gather}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

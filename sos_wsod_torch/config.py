@@ -4,12 +4,14 @@ Reads the repo's released YAML configs (``configs/stage1/*.yaml``) with the
 merge rules of ``sos_wsod_tpu/config/cfg_node.py``: ``_BASE_`` resolves
 relative to the child file, values are coerced to the type of the default,
 and keys the defaults do not name are taken as they are. The defaults hold
-only the keys the port reads; every other key of a YAML file still lands in
-the tree.
+only the keys the port reads or a user overrides; every other key of a YAML
+file still lands in the tree. ``freeze``/``defrost``/``clone``/``dump``
+behave as the JAX package's.
 """
 from __future__ import annotations
 
 import ast
+import copy
 import os
 from typing import Any, Dict, List
 
@@ -19,10 +21,11 @@ _BASE_KEY = "_BASE_"
 
 
 class CfgNode(dict):
-    """A dict with attribute access and recursive merge."""
+    """A dict with attribute access, freezing and recursive merge."""
 
     def __init__(self, init: Dict[str, Any] | None = None):
         super().__init__()
+        self.__dict__["_frozen"] = False
         for k, v in (init or {}).items():
             self[k] = v
 
@@ -35,12 +38,39 @@ class CfgNode(dict):
         self[name] = value
 
     def __setitem__(self, name: str, value: Any) -> None:
+        if self._frozen:
+            raise AttributeError(f"config is frozen; cannot set {name}")
         if isinstance(value, dict) and not isinstance(value, CfgNode):
             value = CfgNode(value)
         super().__setitem__(name, value)
 
+    def freeze(self) -> None:
+        self._set_frozen(True)
+
+    def defrost(self) -> None:
+        self._set_frozen(False)
+
+    def _set_frozen(self, frozen: bool) -> None:
+        self.__dict__["_frozen"] = frozen
+        for v in self.values():
+            if isinstance(v, CfgNode):
+                v._set_frozen(frozen)
+
+    def is_frozen(self) -> bool:
+        return self._frozen
+
+    def clone(self) -> "CfgNode":
+        """A deep copy, not frozen (as the JAX package's clone)."""
+        return copy.deepcopy(self)
+
+    def __deepcopy__(self, memo) -> "CfgNode":
+        return CfgNode(copy.deepcopy(self.to_dict(), memo))
+
     def to_dict(self) -> Dict[str, Any]:
         return {k: v.to_dict() if isinstance(v, CfgNode) else v for k, v in self.items()}
+
+    def dump(self) -> str:
+        return yaml.safe_dump(self.to_dict(), default_flow_style=None, sort_keys=True)
 
     def merge_from_file(self, filename: str) -> None:
         _merge_a_into_b(_load_yaml_with_base(filename), self)
@@ -108,9 +138,15 @@ def _load_yaml_with_base(filename: str) -> Dict[str, Any]:
 
 def get_cfg() -> CfgNode:
     """The defaults of every key the port reads (the values of the JAX
-    package's ``get_cfg()``)."""
+    package's ``get_cfg()``; MODEL.DEVICE names a torch device, "cuda" as in
+    detectron2, where the JAX package says "tpu")."""
     return CfgNode({
+        "OUTPUT_DIR": "./output",
         "MODEL": {
+            "META_ARCHITECTURE": "GeneralizedRCNN",
+            "DEVICE": "cuda",
+            "WEIGHTS": "",
+            "LOAD_PROPOSALS": False,
             "PIXEL_MEAN": [103.530, 116.280, 123.675],   # BGR
             "PIXEL_STD": [1.0, 1.0, 1.0],
             "BACKBONE": {"FREEZE_AT": 2},
@@ -123,8 +159,11 @@ def get_cfg() -> CfgNode:
         "INPUT": {"MIN_SIZE_TRAIN": (800,), "MAX_SIZE_TRAIN": 1333,
                   "MIN_SIZE_TEST": 800, "MAX_SIZE_TEST": 1333,
                   "CROP": {"ENABLED": False, "TYPE": "relative_range", "SIZE": [0.9, 0.9]}},
-        "DATASETS": {"PRECOMPUTED_PROPOSAL_TOPK_TRAIN": 2000},
-        "DATALOADER": {"NUM_WORKERS": 4, "ASPECT_RATIO_GROUPING": True},
+        "DATASETS": {"TRAIN": (), "TEST": (), "PROPOSAL_FILES_TRAIN": (),
+                     "PROPOSAL_FILES_TEST": (), "PRECOMPUTED_PROPOSAL_TOPK_TRAIN": 2000,
+                     "PRECOMPUTED_PROPOSAL_TOPK_TEST": 1000},
+        "DATALOADER": {"NUM_WORKERS": 4, "ASPECT_RATIO_GROUPING": True,
+                       "FILTER_EMPTY_ANNOTATIONS": True},
         "SOLVER": {
             "LR_SCHEDULER_NAME": "WarmupMultiStepLR",
             "MAX_ITER": 40000,
@@ -139,17 +178,20 @@ def get_cfg() -> CfgNode:
             "WARMUP_ITERS": 1000,
             "WARMUP_METHOD": "linear",
             "IMS_PER_BATCH": 16,
+            "CHECKPOINT_PERIOD": 5000,
+            "REFERENCE_WORLD_SIZE": 0,
             "BIAS_LR_FACTOR": 1.0,
             "WEIGHT_DECAY_BIAS": 0.0001,
             "REFINE_LR_SCALE": 1.0,
             "REFINE_SCALE_ON": False,
             "CLIP_GRADIENTS": {"ENABLED": False, "CLIP_TYPE": "value", "CLIP_VALUE": 1.0},
         },
-        "TEST": {"DETECTIONS_PER_IMAGE": 100},
+        "TEST": {"EVAL_PERIOD": 0, "EXPECTED_RESULTS": [], "DETECTIONS_PER_IMAGE": 100},
         "WSL": {"ITER_SIZE": 1, "MEAN_LOSS": True, "REFINE_NUM": 3,
                 "REFINE_REG": [False, False, False], "REFINE_MIST": False,
                 "MIST_P": 0.10, "MIST_THRE": 0.05, "MIST_TYPE": "nms"},
         "OICRPLUS": {"BBOX_UPDATE": False},
+        "WSODEVAL": {"SAVE_DETECTION_RESULT": False, "SAVE_PATH": ""},
         # the config files' own namespace for padding and dtype knobs
         "TPU": {"PROPOSAL_CAPACITY": 4096, "PROPOSAL_BUCKETS": (), "PGT_SEED_CAPACITY": 1024,
                 "IMAGE_SIZE_DIVISIBILITY": 64, "COMPUTE_DTYPE": "bfloat16"},

@@ -1,20 +1,70 @@
-"""Training streams: dataset dicts -> mapped samples -> batches of one canvas.
+"""Data loaders: registered datasets -> dataset dicts -> mapped samples.
 
-Counterpart of ``training_index_stream`` and ``batched_stream`` in
-``sos_wsod_tpu/data/build.py`` (detectron2's TrainingSampler and aspect-ratio
-grouping): an infinite seeded shuffle, rank-strided across processes; mapped
-4-view samples binned by aspect (tall vs wide) and proposal capacity, and each
-batch re-padded to the largest bucketed canvas of its members, per scale.
+Counterpart of ``sos_wsod_tpu/data/build.py`` (detectron2's
+get_detection_dataset_dicts, TrainingSampler and aspect-ratio grouping):
+  - ``get_detection_dataset_dicts``: the catalog's dicts with their
+    precomputed proposals, images without annotations dropped on request;
+  - training: an infinite seeded shuffle, rank-strided across processes;
+    mapped 4-view samples binned by aspect (tall vs wide) and proposal
+    capacity, each batch re-padded to the largest bucketed canvas of its
+    members, per scale;
+  - test: ``DatasetMapperTest``, one resized image and its proposals per
+    sample, in dataset order.
+Rank and world size come from ``torch.distributed`` when it is initialized.
 """
 from __future__ import annotations
 
 import itertools
+import logging
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .mapper_multi import bucket_shape, pad_image
+from ..core.boxes import unique_boxes_keep_mask
+from . import transforms as T
+from .catalog import DatasetCatalog
+from .mapper_multi import (
+    DatasetMapperMultiInput,
+    _nonempty,
+    bucket_shape,
+    pad_image,
+    pick_capacity,
+    read_image_bgr,
+)
+from .proposals import load_proposals_into_dataset
+
+logger = logging.getLogger(__name__)
+
+
+def get_detection_dataset_dicts(names: Sequence[str], filter_empty: bool = True,
+                                proposal_files: Optional[Sequence[str]] = None) -> List[dict]:
+    """The dicts of the registered datasets ``names``, in order, with the
+    proposals of ``proposal_files`` (one per dataset) merged in; with
+    ``filter_empty``, images without annotations are dropped."""
+    if isinstance(names, str):
+        names = [names]
+    dicts_per = [DatasetCatalog.get(n) for n in names]
+    if proposal_files:
+        if len(proposal_files) != len(names):
+            raise ValueError(f"{len(proposal_files)} proposal files for {len(names)} datasets")
+        dicts_per = [load_proposals_into_dataset(d, f) for d, f in zip(dicts_per, proposal_files)]
+    dataset_dicts = list(itertools.chain.from_iterable(dicts_per))
+    if filter_empty and all("annotations" in d for d in dataset_dicts):
+        before = len(dataset_dicts)
+        dataset_dicts = [d for d in dataset_dicts if len(d.get("annotations", []))]
+        logger.info("Removed %d images with no annotations", before - len(dataset_dicts))
+    return dataset_dicts
+
+
+def rank_and_world() -> Tuple[int, int]:
+    """This process's rank and the world size of ``torch.distributed``, or
+    (0, 1) when it is not initialized."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def training_index_stream(n: int, seed: int = 0, shuffle: bool = True, rank: int = 0,
@@ -47,15 +97,16 @@ def batched_stream(dataset_dicts: List[dict],
                    mapper: Callable[[dict], Optional[Dict[str, np.ndarray]]],
                    batch_size: int, *, seed: int = 0, shuffle: bool = True,
                    size_divisibility: int = 64, num_workers: int = 0,
-                   aspect_ratio_grouping: bool = True
+                   aspect_ratio_grouping: bool = True, rank: int = 0, world: int = 1
                    ) -> Iterator[List[Dict[str, np.ndarray]]]:
     """Yield lists of ``batch_size`` mapped 4-view samples that share one
-    canvas shape per scale. A mapper returning None skips the image. With
+    canvas shape per scale, from process ``rank`` of ``world``'s share of
+    the index stream. A mapper returning None skips the image. With
     ``num_workers`` > 0, ``mapper.plan(d)`` draws each image's random
     transforms on the calling thread in stream order and that many threads
     run the calls it returns, a window ahead of the consumer: the samples
     equal the serial path's."""
-    stream = training_index_stream(len(dataset_dicts), seed, shuffle)
+    stream = training_index_stream(len(dataset_dicts), seed, shuffle, rank, world)
 
     def mapped():
         if num_workers > 0:
@@ -88,3 +139,101 @@ def batched_stream(dataset_dicts: List[dict],
                                         max(g[key].shape[2] for g in group), size_divisibility)
                       for key in _CANVAS_KEYS}
             yield [_repad_to(g, shapes) for g in group]
+
+
+def build_stage1_train_loader(cfg, mapper=None):
+    """Infinite stream of stage-1 4-view batches over DATASETS.TRAIN with
+    their proposal files. SOLVER.IMS_PER_BATCH is the global batch; each
+    process maps its 1/world share of it."""
+    if mapper is None and cfg.MODEL.META_ARCHITECTURE != "MultiInputRCNN":
+        raise NotImplementedError(
+            f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: only the multi-input "
+            "stage-1 model (MultiInputRCNN) is ported; the single-view mapper is not")
+    dataset_dicts = get_detection_dataset_dicts(
+        cfg.DATASETS.TRAIN, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
+        proposal_files=cfg.DATASETS.PROPOSAL_FILES_TRAIN if cfg.MODEL.LOAD_PROPOSALS else None)
+    mapper = mapper or DatasetMapperMultiInput.from_cfg(cfg)
+    rank, world = rank_and_world()
+    if cfg.SOLVER.IMS_PER_BATCH % world:
+        raise ValueError(f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} is not divisible "
+                         f"by {world} processes")
+    return batched_stream(dataset_dicts, mapper, cfg.SOLVER.IMS_PER_BATCH // world,
+                          seed=max(cfg.SEED, 0), size_divisibility=cfg.TPU.IMAGE_SIZE_DIVISIBILITY,
+                          num_workers=cfg.DATALOADER.NUM_WORKERS,
+                          aspect_ratio_grouping=cfg.DATALOADER.ASPECT_RATIO_GROUPING,
+                          rank=rank, world=world)
+
+
+class DatasetMapperTest:
+    """Single-view inference mapper: ResizeShortestEdge(MIN_SIZE_TEST) with
+    MAX_SIZE_TEST, no flip; all proposals transformed, clipped, kept when
+    unique and non-empty, then the top ``proposal_topk`` padded to the
+    smallest proposal bucket that holds them (else ``proposal_capacity``).
+    Returns the keys of ``MultiInputRCNN.predict`` plus image_id and
+    orig_hw."""
+
+    def __init__(self, *, min_size_test: int, max_size_test: int, proposal_topk: int = 1000,
+                 proposal_capacity: int = 4096, proposal_buckets: Sequence[int] = (),
+                 size_divisibility: int = 64):
+        self.min_size_test = min_size_test
+        self.max_size_test = max_size_test
+        self.proposal_topk = proposal_topk
+        self.capacity = proposal_capacity
+        self.proposal_buckets = tuple(sorted(int(b) for b in proposal_buckets))
+        self.size_divisibility = size_divisibility
+
+    @classmethod
+    def from_cfg(cls, cfg) -> "DatasetMapperTest":
+        return cls(min_size_test=cfg.INPUT.MIN_SIZE_TEST, max_size_test=cfg.INPUT.MAX_SIZE_TEST,
+                   proposal_topk=cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST,
+                   proposal_capacity=cfg.TPU.PROPOSAL_CAPACITY,
+                   proposal_buckets=cfg.TPU.PROPOSAL_BUCKETS,
+                   size_divisibility=cfg.TPU.IMAGE_SIZE_DIVISIBILITY)
+
+    def __call__(self, d: dict) -> Dict[str, np.ndarray]:
+        image = d.get("image")
+        if image is None:
+            image = read_image_bgr(d["file_name"])
+        h, w = image.shape[:2]
+        t = T.resize_shortest_edge(h, w, [self.min_size_test], self.max_size_test)
+        img = t.apply_image(image)
+        ih, iw = img.shape[:2]
+        bh, bw = bucket_shape(ih, iw, self.size_divisibility)
+        cap, n = self.capacity, 0
+        if "proposal_boxes" in d:
+            raw = np.asarray(d["proposal_boxes"], np.float32)
+            logits = np.asarray(d["proposal_objectness_logits"], np.float32)[:raw.shape[0]]
+            b = T.clip_boxes(t.apply_box(raw), (ih, iw))
+            keep = unique_boxes_keep_mask(b) & _nonempty(b)
+            b, logits = b[keep][:self.proposal_topk], logits[keep][:self.proposal_topk]
+            cap = pick_capacity(b.shape[0], self.proposal_buckets, self.capacity)
+            n = min(b.shape[0], cap)
+        boxes = np.zeros((cap, 4), np.float32)
+        objectness = np.zeros((cap,), np.float32)
+        if n:
+            boxes[:n], objectness[:n] = b[:n], logits[:n]
+        return {
+            "image": pad_image(img.astype(np.float32), bh, bw),
+            "valid_hw": np.array([ih, iw], np.int32),
+            "boxes": boxes,
+            "objectness": objectness,
+            "prop_valid": np.arange(cap) < n,
+            "image_hw": np.array([ih, iw], np.float32),
+            "image_id": d.get("image_id"),
+            "orig_hw": np.array([h, w], np.float32),
+        }
+
+
+def build_stage1_test_loader(cfg, dataset_name: str,
+                             mapper=None) -> Iterator[Dict[str, np.ndarray]]:
+    """The mapped test samples of ``dataset_name`` in dataset order, with
+    its entry of DATASETS.PROPOSAL_FILES_TEST when it is one of
+    DATASETS.TEST and MODEL.LOAD_PROPOSALS is set."""
+    proposal_files = None
+    tests = list(cfg.DATASETS.TEST)
+    if cfg.MODEL.LOAD_PROPOSALS and dataset_name in tests and cfg.DATASETS.PROPOSAL_FILES_TEST:
+        proposal_files = [cfg.DATASETS.PROPOSAL_FILES_TEST[tests.index(dataset_name)]]
+    dataset_dicts = get_detection_dataset_dicts([dataset_name], filter_empty=False,
+                                                proposal_files=proposal_files)
+    mapper = mapper or DatasetMapperTest.from_cfg(cfg)
+    return (mapper(d) for d in dataset_dicts)

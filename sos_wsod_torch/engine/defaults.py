@@ -1,24 +1,92 @@
-"""Stage-1 inference runner.
+"""Command-line setup and the stage-1 inference runner.
 
-Counterpart of ``run_stage1_inference`` in ``sos_wsod_tpu/engine/defaults.py``
-(detectron2's inference_on_dataset + detector_postprocess): single-image
-OICR+ inference over a test stream, detections rescaled to the original image
-size and handed to the evaluator, whose JSON dump is the stage-1 -> stage-2
-contract.
+Counterpart of ``sos_wsod_tpu/engine/defaults.py`` (detectron2's
+default_argument_parser, default_setup, inference_on_dataset +
+detector_postprocess): the CLI's parser, logging, the run directory's
+``config.yaml`` and seeding, the WSL trainer's ``auto_scale_workers``, and
+single-image OICR+ inference over a test stream, detections rescaled to the
+original image size and handed to the evaluator, whose JSON dump is the
+stage-1 -> stage-2 contract.
 """
 from __future__ import annotations
 
+import argparse
 import logging
+import math
+import os
+import sys
 import time
 from collections import OrderedDict
-from typing import Iterable
+from typing import Iterable, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..models.postprocess import rescale_detections
 
 logger = logging.getLogger(__name__)
+
+
+def default_argument_parser(epilog: Optional[str] = None) -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(epilog=epilog)
+    parser.add_argument("--config-file", default="", metavar="FILE")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--eval-only", action="store_true")
+    parser.add_argument("--num-gpus", type=int, default=1,
+                        help="GPUs per machine; only 1 until data parallelism is ported")
+    parser.add_argument("--num-machines", type=int, default=1)
+    parser.add_argument("--machine-rank", type=int, default=0)
+    parser.add_argument("--dist-url", default="auto")
+    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
+                        help="Modify config options 'KEY VALUE' pairs at the end")
+    return parser
+
+
+def setup_logging(output_dir: str = "") -> None:
+    """INFO logging to stdout and, with ``output_dir``, to its log.txt."""
+    handlers = [logging.StreamHandler(sys.stdout)]
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(output_dir, "log.txt")))
+    logging.basicConfig(level=logging.INFO, handlers=handlers, force=True,
+                        format="[%(asctime)s] %(name)s %(levelname)s: %(message)s")
+
+
+def default_setup(cfg, args) -> None:
+    """Logging, ``OUTPUT_DIR``/config.yaml and numpy's seed (SEED >= 0).
+    Raises for more than one GPU or machine: data parallelism is not
+    ported."""
+    if args.num_gpus > 1 or args.num_machines > 1:
+        raise NotImplementedError("--num-gpus/--num-machines > 1: data parallelism is not "
+                                  "ported; run on one GPU")
+    setup_logging(cfg.OUTPUT_DIR)
+    logger.info("Command line args: %s", args)
+    if cfg.OUTPUT_DIR:
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
+    if cfg.SEED >= 0:
+        np.random.seed(cfg.SEED)
+
+
+def auto_scale_workers(cfg, num_workers: int):
+    """With SOLVER.REFERENCE_WORLD_SIZE set and larger than ``num_workers``,
+    a copy of ``cfg`` with BASE_LR divided and WSL.ITER_SIZE ceil-multiplied
+    by the ratio, so that gradient accumulation keeps the reference's batch
+    per update; else ``cfg`` itself. A frozen config stays frozen."""
+    old_world_size = cfg.SOLVER.REFERENCE_WORLD_SIZE
+    if old_world_size in (0, num_workers) or old_world_size < num_workers:
+        return cfg
+    frozen = cfg.is_frozen()
+    cfg = cfg.clone()
+    scale = num_workers / old_world_size
+    lr = cfg.SOLVER.BASE_LR = cfg.SOLVER.BASE_LR / scale
+    iter_size = cfg.WSL.ITER_SIZE = math.ceil(cfg.WSL.ITER_SIZE / scale)
+    logger.info("Auto-scaling the config to iter_size=%s, learning_rate=%s", iter_size, lr)
+    if frozen:
+        cfg.freeze()
+    return cfg
 
 
 def inference_on_samples(model, data_iter: Iterable, evaluator, device) -> int:

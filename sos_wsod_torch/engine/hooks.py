@@ -1,14 +1,17 @@
-"""Trainer hooks: HookBase, IterationTimer and PeriodicWriter.
+"""Trainer hooks: HookBase, IterationTimer, PeriodicWriter, CheckpointHook,
+EvalHook and LRSchedulerHook.
 
 Counterpart of the same classes in ``sos_wsod_tpu/engine/hooks.py``
-(detectron2's hook surface). Checkpointing, evaluation and profiling hooks
-are not ported yet.
+(detectron2's hook surface). The profiler hook is not ported: the port's
+layers carry torch.profiler ranges instead.
 """
 from __future__ import annotations
 
 import logging
 import time
-from typing import List
+from typing import Callable, List, Optional
+
+from ..evaluation.testing import flatten_results_dict
 
 logger = logging.getLogger(__name__)
 
@@ -75,3 +78,53 @@ class PeriodicWriter(HookBase):
         for w in self._writers:
             w.write(self.trainer.storage)
             w.close()
+
+
+class CheckpointHook(HookBase):
+    """Steps a ``PeriodicCheckpointer`` over the trainer's state after each
+    step; the final save is the periodic checkpointer's ``max_iter`` rule."""
+
+    def __init__(self, periodic_checkpointer):
+        self._pc = periodic_checkpointer
+
+    def after_step(self):
+        self._pc.step(self.trainer.iter, self.trainer.state_dict())
+
+
+class EvalHook(HookBase):
+    """Runs ``eval_fn`` after every ``eval_period``-th step except the last,
+    and once after training when training reached ``max_iter``; puts the
+    flattened results ("<dataset>/bbox/AP50", ...) as unsmoothed scalars."""
+
+    def __init__(self, eval_period: int, eval_fn: Callable[[], Optional[dict]]):
+        self._period = eval_period
+        self._fn = eval_fn
+
+    def _do_eval(self):
+        results = self._fn()
+        if results:
+            self.trainer.storage.put_scalars(smoothing_hint=False,
+                                             **flatten_results_dict(results))
+
+    def after_step(self):
+        it = self.trainer.iter
+        if self._period > 0 and (it + 1) % self._period == 0 and it != self.trainer.max_iter - 1:
+            self._do_eval()
+
+    def after_train(self):
+        # only when training reached max_iter, so that an exception in a
+        # step is not followed by an eval of a half-trained model
+        if self.trainer.iter + 1 >= self.trainer.max_iter:
+            self._do_eval()
+
+
+class LRSchedulerHook(HookBase):
+    """Puts ``lr``, the learning rate of the optimizer's first parameter
+    group for the step, as read before it: the schedule itself steps inside
+    ``Stage1Trainer.run_step``."""
+
+    def before_step(self):
+        self._lr = self.trainer.optimizer.param_groups[0]["lr"]
+
+    def after_step(self):
+        self.trainer.storage.put_scalar("lr", self._lr, smoothing_hint=False)

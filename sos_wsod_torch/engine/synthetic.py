@@ -1,18 +1,21 @@
-"""Random weights, synthetic test samples and synthetic training dataset
-dicts, for runs without a checkpoint or a dataset (the GPU smoke run, the
-inference profile and the tests).
+"""Random weights, synthetic test samples, synthetic training dataset dicts
+and a synthetic VOC tree on disk, for runs without a checkpoint or a dataset
+(the GPU smoke run, the inference profile, the CLI and the tests).
 
 Everything is made with numpy from a seed: the same seed gives the same
 weights, images and proposals on any machine.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from ..config import get_cfg
 from ..data import transforms as T
+from ..data.proposals import save_proposals
+from ..data.voc import CLASS_NAMES
 from ..models.meta.rcnn_wsl import MultiInputRCNN
 from .weights import load_weights, state_dict_from_d2_wsl
 
@@ -148,3 +151,66 @@ def build_synthetic_slice(config_file: str, device, num_images: int,
     model = build_synthetic_model(cfg, device, seed)
     samples, annotations = synthetic_test_samples(cfg, num_images, raw_hw, num_proposals, seed)
     return cfg, model, samples, annotations
+
+
+def _voc_xml(fileid: str, hw: Tuple[int, int], objects: List[tuple]) -> str:
+    objs = "".join(
+        f"  <object><name>{name}</name><difficult>{difficult}</difficult><bndbox>"
+        f"<xmin>{x1}</xmin><ymin>{y1}</ymin><xmax>{x2}</xmax><ymax>{y2}</ymax>"
+        f"</bndbox></object>\n" for name, difficult, (x1, y1, x2, y2) in objects)
+    return (f"<annotation>\n  <filename>{fileid}.jpg</filename>\n  <size><width>{hw[1]}"
+            f"</width><height>{hw[0]}</height><depth>3</depth></size>\n{objs}</annotation>\n")
+
+
+def write_synthetic_voc(root: str,
+                        splits: Sequence[Tuple[str, int]] = (("train", 8), ("val", 4), ("test", 4)),
+                        raw_hw: Tuple[int, int] = (375, 500), num_proposals: int = 4000,
+                        seed: int = 0) -> Dict[str, List[str]]:
+    """A VOC-format dataset under ``root`` at the paths the stage-1 configs
+    name: ``datasets/VOC2007/{JPEGImages,Annotations,ImageSets/Main}`` and
+    ``datasets/proposals/mcg_voc_2007_{split}_d2.pkl``. Each image is a
+    random ``raw_hw`` JPEG with one or two painted objects of random classes
+    and one object marked difficult in its XML (1-based inclusive boxes);
+    its ``num_proposals`` proposals (the first on the first object) carry
+    objectness logits in [0, 1). Returns each split's image ids."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    h, w = raw_hw
+    voc = os.path.join(root, "datasets", "VOC2007")
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(voc, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "datasets", "proposals"), exist_ok=True)
+    ids_per_split, n = {}, 0
+    for split, count in splits:
+        ids, boxes, logits = [], [], []
+        for _ in range(count):
+            n += 1
+            fileid = f"{n:06d}"
+            img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            objects = []
+            n_easy = rng.randint(1, 3)
+            for k in range(n_easy + 1):    # the last one is difficult
+                bw, bh = rng.randint(w // 8, w // 2), rng.randint(h // 8, h // 2)
+                x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+                img[y1:y1 + bh, x1:x1 + bw] = rng.randint(0, 256, 3)
+                objects.append((CLASS_NAMES[rng.randint(len(CLASS_NAMES))], int(k == n_easy),
+                                (x1 + 1, y1 + 1, x1 + bw, y1 + bh)))
+            Image.fromarray(img).save(os.path.join(voc, "JPEGImages", fileid + ".jpg"),
+                                      quality=92)
+            with open(os.path.join(voc, "Annotations", fileid + ".xml"), "w") as f:
+                f.write(_voc_xml(fileid, raw_hw, objects))
+            x0, y0 = rng.uniform(0, w - 8, num_proposals), rng.uniform(0, h - 8, num_proposals)
+            b = np.stack([x0, y0, np.minimum(x0 + rng.uniform(8, w / 2, num_proposals), w),
+                          np.minimum(y0 + rng.uniform(8, h / 2, num_proposals), h)], 1)
+            gx1, gy1, gx2, gy2 = objects[0][2]
+            b[0] = [gx1 - 1, gy1 - 1, gx2, gy2]
+            ids.append(fileid)
+            boxes.append(b.astype(np.float32))
+            logits.append(rng.uniform(0, 1, num_proposals).astype(np.float32))
+        with open(os.path.join(voc, "ImageSets", "Main", split + ".txt"), "w") as f:
+            f.write("".join(i + "\n" for i in ids))
+        save_proposals(os.path.join(root, "datasets", "proposals",
+                                    f"mcg_voc_2007_{split}_d2.pkl"), ids, boxes, logits)
+        ids_per_split[split] = ids
+    return ids_per_split

@@ -10,7 +10,10 @@ jitted step:
     package's optax.MultiSteps), then clipping, SGD and the LR schedule
     step once;
   - a non-finite total raises FloatingPointError before its backward;
-  - dropout draws from a torch.Generator seeded with max(SEED, 0).
+  - dropout draws from a torch.Generator seeded with max(SEED, 0);
+  - ``state_dict``/``load_state_dict`` carry what a resumed run needs:
+    model, optimizer, LR schedule, the dropout generator, ``iter`` (steps
+    completed) and gradients accumulated towards an update.
 Each image's backward runs right after its forward, so only one image's
 activations are alive at a time. Profiler ranges: ``h2d``, ``backward``,
 ``optimizer`` and those of ``MultiInputRCNN.loss``.
@@ -20,7 +23,7 @@ from __future__ import annotations
 import logging
 import time
 import weakref
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.profiler import record_function
@@ -103,6 +106,7 @@ class Stage1Trainer(TrainerBase):
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(max(cfg.SEED, 0))
         self._micro_steps = 0
+        self.steps_done = 0
 
     def run_step(self):
         t0 = time.perf_counter()
@@ -142,3 +146,27 @@ class Stage1Trainer(TrainerBase):
         self.storage.put_scalar("data_time", data_time)
         for k, v in zip(keys, means.tolist()):
             self.storage.put_scalar(k, v)
+        self.steps_done = self.iter + 1
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a resumed run needs; ``iter`` is the number of steps done.
+        Gradients accumulated towards the next update (WSL.ITER_SIZE > 1)
+        are kept too."""
+        pending = self._micro_steps % self.iter_size
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(),
+                "generator": self.generator.get_state(), "iter": self.steps_done,
+                "accumulated": {"micro_steps": pending,
+                                "grads": [p.grad for p in self.params] if pending else None}}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore a ``state_dict`` (tensors on the model's device)."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.generator.set_state(state["generator"].cpu())
+        self.steps_done = int(state["iter"])
+        acc = state["accumulated"]
+        self._micro_steps = acc["micro_steps"]
+        for p, g in zip(self.params, acc["grads"] or [None] * len(self.params)):
+            p.grad = g

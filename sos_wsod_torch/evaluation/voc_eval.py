@@ -5,16 +5,20 @@ devkit's AP (+1 pixel IoU, difficult objects neither hit nor miss, the 2007
 11-point metric), CorLoc, AP over IoU .50:.95, and the COCO-style JSON dump
 (1-based ``category_id``) that stage 2 reads its pseudo-boxes from.
 Detections stay in memory, rounded as the devkit's text files round them
-(score to 3 decimals, coordinates to 1).
+(score to 3 decimals, coordinates to 1). ``annotations_from_dataset_dicts``
+builds the evaluator's ground truth from a dataset's XML files.
 """
 from __future__ import annotations
 
 import json
 import os
+import xml.etree.ElementTree as ET
 from collections import OrderedDict, defaultdict
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from ..data.voc import CLASS_NAMES
 
 
 def voc_ap(rec: np.ndarray, prec: np.ndarray, use_07_metric: bool = False) -> float:
@@ -167,3 +171,30 @@ class PascalVOCDetectionEvaluator:
         ret["corloc"] = {"CorLoc": float(np.mean(list(m_cl.values()))),
                          "CorLoc50": float(m_cl[50]), "CorLoc75": float(m_cl[75])}
         return ret
+
+
+def annotations_from_dataset_dicts(dataset_dicts: List[dict],
+                                   dirname: Optional[str] = None) -> Dict[str, dict]:
+    """The evaluator's ground truth, {image_id: {boxes, classes, difficult}},
+    from ``dirname``/Annotations/<image_id>.xml where that file exists (the
+    XML keeps the difficult objects the loader drops), else from the dict's
+    0-based annotations, shifted back to the devkit's 1-based x1, y1."""
+    out = {}
+    for d in dataset_dicts:
+        image_id = str(d["image_id"])
+        xml_path = os.path.join(dirname, "Annotations", image_id + ".xml") if dirname else None
+        if xml_path and os.path.isfile(xml_path):
+            objs = ET.parse(xml_path).findall("object")
+            boxes = [[int(o.find("bndbox").find(x).text) for x in ("xmin", "ymin", "xmax", "ymax")]
+                     for o in objs]
+            classes = [CLASS_NAMES.index(o.find("name").text) for o in objs]
+            difficult = [int(o.find("difficult").text) for o in objs]
+        else:
+            ann = d.get("annotations", [])
+            boxes = [[a["bbox"][0] + 1, a["bbox"][1] + 1, a["bbox"][2], a["bbox"][3]] for a in ann]
+            classes = [a["category_id"] for a in ann]
+            difficult = [a.get("difficult", False) for a in ann]
+        out[image_id] = {"boxes": np.asarray(boxes, np.float64).reshape(-1, 4),
+                         "classes": np.asarray(classes, np.int64),
+                         "difficult": np.asarray(difficult, bool)}
+    return out

@@ -1,0 +1,125 @@
+"""Stage-1 WSOD training and evaluation CLI.
+
+Counterpart of ``tools/train_net_stage1.py`` (the reference's
+train_net_multi.py): setup -> model -> Stage1Trainer with its hooks ->
+resume -> train; ``--eval-only`` runs the VOC evaluator over each of
+DATASETS.TEST, and with WSODEVAL.SAVE_DETECTION_RESULT writes the
+detection-result JSON that stage 2 reads. The VOC sets are registered under
+``./datasets`` (``register_all_voc``). As in the JAX CLI, MODEL.WEIGHTS is
+not read: training starts from the model's initializer, seeded by SEED.
+
+    python -m sos_wsod_torch.tools.train_net_stage1 \\
+        --config-file configs/stage1/voc07_oicr_plus.yaml [--resume] [--eval-only] [KEY VALUE ...]
+"""
+from __future__ import annotations
+
+import logging
+import os
+from collections import OrderedDict
+
+import torch
+
+from ..config import get_cfg
+from ..data.build import build_stage1_test_loader, build_stage1_train_loader, rank_and_world
+from ..data.catalog import DatasetCatalog, MetadataCatalog
+from ..data.datasets.voc import register_all_voc
+from ..engine.checkpoint import Checkpointer, PeriodicCheckpointer
+from ..engine.defaults import (
+    auto_scale_workers,
+    default_argument_parser,
+    default_setup,
+    run_stage1_inference,
+)
+from ..engine.hooks import (
+    CheckpointHook,
+    EvalHook,
+    IterationTimer,
+    LRSchedulerHook,
+    PeriodicWriter,
+)
+from ..engine.synthetic import build_synthetic_model
+from ..engine.trainer import Stage1Trainer
+from ..engine.weights import load_weights
+from ..evaluation.testing import verify_results
+from ..evaluation.voc_eval import PascalVOCDetectionEvaluator, annotations_from_dataset_dicts
+from ..models.meta.rcnn_wsl import MultiInputRCNN
+from ..utils.events import CommonMetricPrinter, JSONWriter
+
+logger = logging.getLogger(__name__)
+
+
+def setup(args):
+    cfg = get_cfg()
+    if args.config_file:
+        cfg.merge_from_file(args.config_file)
+    cfg.merge_from_list(args.opts or [])
+    cfg.freeze()
+    cfg = auto_scale_workers(cfg, rank_and_world()[1])
+    default_setup(cfg, args)
+    return cfg
+
+
+def do_test(cfg, model) -> OrderedDict:
+    """Each of DATASETS.TEST through ``run_stage1_inference`` into a VOC
+    evaluator over its XML ground truth; checks TEST.EXPECTED_RESULTS."""
+    register_all_voc()
+    device = next(model.parameters()).device
+    results = OrderedDict()
+    for name in cfg.DATASETS.TEST:
+        meta = MetadataCatalog.get(name)
+        evaluator = PascalVOCDetectionEvaluator(
+            name, annotations_from_dataset_dicts(DatasetCatalog.get(name), meta.get("dirname")),
+            meta.thing_classes, year=int(meta.get("year", 2007)),
+            save_detection_result=cfg.WSODEVAL.SAVE_DETECTION_RESULT,
+            save_path=cfg.WSODEVAL.SAVE_PATH or os.path.join(
+                cfg.OUTPUT_DIR, "detection_results", "oicr_plus_{}.json"))
+        results[name] = run_stage1_inference(model, build_stage1_test_loader(cfg, name),
+                                             evaluator, device)
+    if cfg.TEST.EXPECTED_RESULTS:
+        verify_results(cfg, results)
+    return results
+
+
+def main(args):
+    """Train (returns the trainer) or, with ``--eval-only``, evaluate the
+    checkpoint named by ``last_checkpoint``, else ``model_final`` (returns
+    the results by dataset)."""
+    cfg = setup(args)
+    register_all_voc()
+    if cfg.MODEL.META_ARCHITECTURE != "MultiInputRCNN":
+        raise NotImplementedError(
+            f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: only the multi-input "
+            "stage-1 model (MultiInputRCNN) is ported")
+    device = torch.device(cfg.MODEL.DEVICE)
+    checkpointer = Checkpointer(cfg.OUTPUT_DIR)
+
+    if args.eval_only:
+        name = checkpointer.get_last_checkpoint() or "model_final"
+        state = checkpointer.load(name, map_location=device)
+        model = load_weights(MultiInputRCNN.from_cfg(cfg, device="meta"), state["model"], device)
+        logger.info("Loaded the model of %s (iteration %s)", checkpointer.path(name),
+                    state.get("iter"))
+        return do_test(cfg, model)
+
+    model = build_synthetic_model(cfg, device, max(cfg.SEED, 0))
+    trainer = Stage1Trainer(cfg, model, build_stage1_train_loader(cfg))
+    writers = [CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
+               JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json"))]
+    trainer.register_hooks([
+        IterationTimer(),
+        LRSchedulerHook(),
+        CheckpointHook(PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD,
+                                            cfg.SOLVER.MAX_ITER)),
+        EvalHook(cfg.TEST.EVAL_PERIOD, lambda: do_test(cfg, model)),
+        PeriodicWriter(writers, period=20),
+    ])
+    start_iter = checkpointer.resume_or_load(trainer, resume=args.resume)
+    try:
+        trainer.train(start_iter, cfg.SOLVER.MAX_ITER)
+    finally:
+        trainer.data_iter.close()   # stops the mapper's threads
+    return trainer
+
+
+if __name__ == "__main__":
+    main(default_argument_parser().parse_args())

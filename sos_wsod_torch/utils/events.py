@@ -11,23 +11,28 @@ import json
 import logging
 import os
 from collections import defaultdict, deque
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 logger = logging.getLogger(__name__)
 
+
 class HistoryBuffer:
-    """The last ``window`` values of a scalar and the latest one."""
+    """The last ``window`` (value, iteration) pairs of a scalar and the
+    latest value."""
 
     def __init__(self, window: int = 20):
         self._values = deque(maxlen=window)
         self.latest = None
 
-    def update(self, value: float):
-        self._values.append(value)
+    def update(self, value: float, iteration: int):
+        self._values.append((value, iteration))
         self.latest = value
 
+    def values(self) -> List[Tuple[float, int]]:
+        return list(self._values)
+
     def median(self) -> float:
-        vals = sorted(self._values)
+        vals = sorted(v for v, _ in self._values)
         return vals[len(vals) // 2] if vals else 0.0
 
 
@@ -39,9 +44,13 @@ class EventStorage:
         self._latest_iter: Dict[str, int] = {}
 
     def put_scalar(self, name: str, value, smoothing_hint: bool = True):
-        self._history[name].update(float(value))
+        self._history[name].update(float(value), self.iter)
         self._smoothing_hints[name] = smoothing_hint
         self._latest_iter[name] = self.iter
+
+    def put_scalars(self, *, smoothing_hint: bool = True, **kwargs):
+        for k, v in kwargs.items():
+            self.put_scalar(k, v, smoothing_hint)
 
     def histories(self):
         return self._history

@@ -54,6 +54,32 @@ trainer = Stage1Trainer(cfg, build_synthetic_model(cfg, "cpu", 0), stream)
 trainer.train(0, 1)
 assert "loss_cls_r3" in trainer.storage.histories(), sorted(trainer.storage.histories())
 
+# the stage-1 CLI on a synthetic VOC tree: one training step, then
+# --eval-only writes the detection JSON; the gather tool imports
+import os
+from sos_wsod_torch.engine.defaults import default_argument_parser
+from sos_wsod_torch.engine.synthetic import write_synthetic_voc
+from sos_wsod_torch.tools import bench_gather, train_net_stage1
+assert {"sos_wsod_torch.tools.bench_gather",
+        "sos_wsod_torch.tools.train_net_stage1"} <= set(names)
+cwd = os.getcwd()
+with tempfile.TemporaryDirectory() as tmp:
+    write_synthetic_voc(tmp, (("train", 1), ("test", 1)), (50, 70), 30, 0)
+    os.chdir(tmp)
+    cli_opts = ["MODEL.DEVICE", "cpu", "MODEL.ROI_BOX_HEAD.DAN_DIM", "[16, 16]",
+                "TPU.COMPUTE_DTYPE", "float32", "INPUT.MIN_SIZE_TRAIN", "(40, 48)",
+                "INPUT.MIN_SIZE_TEST", "48", "TPU.PROPOSAL_CAPACITY", "32",
+                "TPU.PGT_SEED_CAPACITY", "16", "SOLVER.IMS_PER_BATCH", "1",
+                "DATASETS.TRAIN", "('voc_2007_train',)", "DATASETS.PROPOSAL_FILES_TRAIN",
+                "('datasets/proposals/mcg_voc_2007_train_d2.pkl',)", "SOLVER.MAX_ITER", "1",
+                "OUTPUT_DIR", "out", "WSODEVAL.SAVE_DETECTION_RESULT", "True"]
+    for flags in ([], ["--eval-only"]):
+        train_net_stage1.main(default_argument_parser().parse_args(
+            ["--config-file", str(smoke["CONFIG"]), *flags, *cli_opts]))
+    dets = json.load(open("out/detection_results/oicr_plus_voc_2007_test.json"))
+    assert dets and {d["image_id"] for d in dets} == {2}, dets[:3]
+    os.chdir(cwd)
+
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad
@@ -62,15 +88,17 @@ print(len(names))
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    """Every sos_wsod_torch module, chip_smoke.py and the profile tool import
-    with jax, flax and the JAX package blocked, and the host paths that
-    chip_smoke drives run at a small size on the CPU: inference (config,
-    synthetic samples, weights, the evaluator's JSON) and one training step
-    (synthetic dicts, the 4-view mapper, the batched stream, the trainer)."""
+    """Every sos_wsod_torch module (the gather tool and the stage-1 CLI
+    among them), chip_smoke.py and the profile tool import with jax, flax
+    and the JAX package blocked, and the host paths that chip_smoke drives
+    run at a small size on the CPU: inference (config, synthetic samples,
+    weights, the evaluator's JSON), one training step (synthetic dicts, the
+    4-view mapper, the batched stream, the trainer) and the CLI on a
+    synthetic VOC tree (one step, then --eval-only's JSON)."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 35
+    assert int(proc.stdout.split()[-1]) >= 45
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
