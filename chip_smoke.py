@@ -9,13 +9,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
      paths with nvcc from the sources in this checkout (into
      build/sos_wsod_torch/), one nvcc per source, all started together;
   3. forward kernel vs plain: the ROIPool forward kernel against its plain
-     PyTorch version at the production shape, bf16 and f32, bit-identical out
-     and argmax, with median CUDA-event times of both;
+     PyTorch version at the production shape and the top training map, bf16
+     and f32, bit-identical out and argmax, with and without pos and scale;
+     median CUDA-event times with pos (the training call) and without (the
+     inference call) beside the bound, and the plain version's time at the
+     production shape;
   4. backward kernel vs plain: the ROIPool backward kernel against its plain
      version on the forward kernel's argmax at the production shape, f32
      accumulators within the atomics' rounding bound and exact on integer
      sums, with median times in bf16 and f32 there and at the top training
-     scale;
+     scale, beside the bound and the time of index_add_ alone on
+     precomputed flat indices;
   5. inference slice: the full-width VGG16 OICR+ model of
      configs/stage1/voc07_oicr_plus.yaml with random weights made from a
      seed, 4 synthetic VOC-sized images through run_stage1_inference in bf16
@@ -49,8 +53,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the inference throughput baseline.
-Then one JSON line with the kernels, the card's line and, last,
-{"ok": true, "device": {...}}.
+Then one JSON line with the kernels (each with its launches on the main
+path, its time, the plain version's, the bound and the library call's where
+there is one), the card's line and, last, {"ok": true, "device": {...}}.
+A bound is the bytes the function must move, each input read once and each
+output written once, over the H100's 3.35 TB/s of HBM; every kernel here is
+bound by bytes (its operations are compares and adds, far below 67 TFLOP/s).
 """
 from __future__ import annotations
 
@@ -59,7 +67,6 @@ import logging
 import os
 import pathlib
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -69,11 +76,13 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from sos_wsod_torch.tools.bench_roi_pool import (
+    CAPACITY, FEAT_HWC, NUM_PROPOSALS, TOP_FEAT_HWC, fwd_traffic_bytes, production_pool_inputs,
+    window_cells)
+from sos_wsod_torch.tools.measure import bound_ms, card_line, cuda_ms
+
 ROOT = pathlib.Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "stage1" / "voc07_oicr_plus.yaml"
-FEAT_HWC = (87, 119, 512)      # plain5 of a 688x917 image on its 704x960 canvas
-TOP_FEAT_HWC = (152, 204, 512)  # plain5 at the top training scale, 1216 x ~1621
-NUM_PROPOSALS, CAPACITY = 4000, 4096
 RAW_HW = (375, 500)            # a typical VOC07 image
 NUM_IMAGES = 4
 TRAIN_STEPS = 4
@@ -92,9 +101,7 @@ def log(phase: str, msg: str) -> None:
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi, flush=True)
     log("device", f"{torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
                   f"cuda {torch.version.cuda}")
@@ -119,20 +126,6 @@ def phase_build() -> None:
         log("build", f"{name}.cu -> {lib.relative_to(ROOT)} in {secs:.2f} s; {ptxas}")
 
 
-def _cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` calls, CUDA events."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
@@ -147,54 +140,42 @@ def _assert_same(name: str, out_k, pos_k, out_p, pos_p) -> float:
     return float((out_k.float() - out_p.float()).abs().max())
 
 
-def production_pool_inputs(device, hwc=FEAT_HWC):
-    """Random plain5-sized features with a constant tie plateau, 4000 random
-    proposals padded to 4096 plus whole-image, sub-cell, corner and sliver
-    boxes, and objectness scales in [1, 2]."""
-    rng = np.random.RandomState(SEED)
-    h, w, c = hwc
-    feat = rng.randn(h, w, c).astype(np.float32)
-    feat[10:30, 20:50] = 1.5                          # tie plateau
-    img_h, img_w = 8 * h - 8, 8 * w - 35              # 688 x 917 at the production shape
-    x1 = rng.uniform(0, img_w - 10, CAPACITY)
-    y1 = rng.uniform(0, img_h - 10, CAPACITY)
-    boxes = np.stack([x1, y1, np.minimum(x1 + rng.uniform(2, img_w / 2, CAPACITY), img_w),
-                      np.minimum(y1 + rng.uniform(2, img_h / 2, CAPACITY), img_h)], 1)
-    boxes[:5] = [[0, 0, img_w, img_h], [5, 5, 6, 6], [img_w - 4, img_h - 4, img_w, img_h],
-                 [0, 0, 3, img_h], [160, 80, 400, 240]]   # the last lies on the plateau
-    valid = np.arange(CAPACITY) < NUM_PROPOSALS
-    rs = rng.uniform(1, 2, CAPACITY).astype(np.float32)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    return t(feat), t(boxes.astype(np.float32)), t(valid), t(rs)
-
-
 def phase_kernel_vs_plain(device) -> dict:
     from sos_wsod_torch.kernels.roi_pool import roi_pool_fwd_cuda
     from sos_wsod_torch.ops.roi_pool import bin_windows, roi_pool_reference
+    from sos_wsod_torch.tools.bench_roi_pool import check
 
-    feat32, boxes, valid, rs = production_pool_inputs(device)
-    h, w, _ = FEAT_HWC
-    win = bin_windows(boxes, valid, h, w, 7, 7, 1.0 / 8)
+    def wrapper(feat, win, valid, rs, with_pos):
+        return roi_pool_fwd_cuda(feat, *win, valid, rs, return_argmax=with_pos)
+
     result = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        feat = feat32.to(dtype)
-        out_k, pos_k = roi_pool_fwd_cuda(feat, *win, valid, rs)
-        out_p, pos_p = roi_pool_reference(feat, *win, valid, rs)
-        torch.cuda.synchronize()
-        err = _assert_same(f"roi_pool {dtype}", out_k, pos_k, out_p, pos_p)
-        # the options the main path does not take: no scale, no argmax
-        out_n, no_pos = roi_pool_fwd_cuda(feat, *win, valid, None, return_argmax=False)
-        assert no_pos is None
-        _assert_same(f"roi_pool {dtype} no scale", out_n, None,
-                     roi_pool_reference(feat, *win, valid, None)[0], None)
-        ms = _cuda_ms(lambda: roi_pool_fwd_cuda(feat, *win, valid, rs), 20)
-        plain_ms = _cuda_ms(lambda: roi_pool_reference(feat, *win, valid, rs), 3)
-        live = int((pos_p[..., 0] >= 0).sum())
-        log("kernel", f"roi_pool_fwd {str(dtype)[6:]} feat {tuple(feat.shape)} P={CAPACITY}: "
-                      f"bit-identical out+argmax ({live} live bins); kernel {ms:.3f} ms, "
-                      f"plain {plain_ms:.3f} ms")
-        result[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    return result[torch.bfloat16]
+    for hwc in (FEAT_HWC, TOP_FEAT_HWC):
+        feat32, boxes, valid, rs = production_pool_inputs(device, hwc, SEED)
+        h, w, c = hwc
+        win = bin_windows(boxes, valid, h, w, 7, 7, 1.0 / 8)
+        window_gb = window_cells(*win, valid) * c / 1e9
+        for dtype in (torch.bfloat16, torch.float32):
+            feat = feat32.to(dtype)
+            # with pos and scale (training), without pos (inference), without scale
+            err = check({"roi_pool_fwd_cuda": wrapper}, feat, win, valid, rs)
+            ms = cuda_ms(lambda: roi_pool_fwd_cuda(feat, *win, valid, rs), 20)
+            ms_nopos = cuda_ms(
+                lambda: roi_pool_fwd_cuda(feat, *win, valid, rs, return_argmax=False), 20)
+            isz = feat.element_size()
+            bound = bound_ms(fwd_traffic_bytes(h, w, c, CAPACITY, 7, 7, isz, True))
+            bound_nopos = bound_ms(fwd_traffic_bytes(h, w, c, CAPACITY, 7, 7, isz, False))
+            plain_ms = (cuda_ms(lambda: roi_pool_reference(feat, *win, valid, rs), 3)
+                        if hwc == FEAT_HWC else None)
+            log("kernel", f"roi_pool_fwd {str(dtype)[6:]} feat {hwc} P={CAPACITY}: "
+                          f"bit-identical out+argmax, without pos, without scale; with pos "
+                          f"{ms:.3f} ms (bound {bound:.4f} ms, {100 * bound / ms:.1f}% of it), without pos {ms_nopos:.3f} ms "
+                          f"(bound {bound_nopos:.4f} ms, {100 * bound_nopos / ms_nopos:.1f}%); "
+                          f"window cells {window_gb * isz:.2f} GB, read at "
+                          f"{window_gb * isz / ms:.2f} TB/s" +
+                          (f"; plain {plain_ms:.3f} ms" if plain_ms is not None else ""))
+            result[(hwc, dtype)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                    "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+    return result[(FEAT_HWC, torch.bfloat16)]
 
 
 def phase_backward_vs_plain(device) -> dict:
@@ -210,7 +191,7 @@ def phase_backward_vs_plain(device) -> dict:
     gen = torch.Generator(device).manual_seed(SEED)
     result = {}
     for hwc in (FEAT_HWC, TOP_FEAT_HWC):
-        feat32, boxes, valid, rs = production_pool_inputs(device, hwc)
+        feat32, boxes, valid, rs = production_pool_inputs(device, hwc, SEED)
         h, w, c = hwc
         win = bin_windows(boxes, valid, h, w, 7, 7, 1.0 / 8)
         for dtype in (torch.bfloat16, torch.float32):
@@ -231,16 +212,27 @@ def phase_backward_vs_plain(device) -> dict:
             if not bool((err <= bound).all()):
                 raise AssertionError(f"roi_pool_bwd {hwc} {dtype}: {int((err > bound).sum())} "
                                      f"cells beyond the atomics' bound, max |d| {float(err.max())}")
-            ms = _cuda_ms(lambda: roi_pool_bwd_cuda(g, pos, rs_t, h, w), 20)
-            plain_ms = _cuda_ms(lambda: roi_pool_backward_reference(g, pos, rs_t, h, w), 5)
+            ms = cuda_ms(lambda: roi_pool_bwd_cuda(g, pos, rs_t, h, w), 20)
+            plain_ms = cuda_ms(lambda: roi_pool_backward_reference(g, pos, rs_t, h, w), 5)
+            # the library call: index_add_ alone, on flat indices made beforehand
+            ch = torch.arange(c, dtype=torch.int64, device=device)
+            flat = torch.where(pos >= 0, pos.long() * c + ch, h * w * c).reshape(-1)
+            gp = (g.float() * rs_t[:, None, None, None]).reshape(-1)
+            library_ms = cuda_ms(lambda: torch.zeros(h * w * c + 1, device=device)
+                                  .index_add_(0, flat, gp), 20)
+            del flat, gp
+            bound_t = bound_ms(g.numel() * (g.element_size() + 4) + rs_t.numel() * 4
+                               + h * w * c * 4)
             mb = h * w * c * 4 / 2 ** 20
             log("kernel", f"roi_pool_bwd {str(dtype)[6:]} g {tuple(g.shape)} -> acc {hwc} f32 "
                           f"({mb:.1f} MiB): integer sums exact, max |d| {float(err.max()):.3e} "
                           f"within the bound (max {float(bound.max()):.3e}, up to "
-                          f"{int(count.max())} terms a cell); kernel {ms:.3f} ms, "
-                          f"plain {plain_ms:.3f} ms")
+                          f"{int(count.max())} terms a cell); kernel {ms:.3f} ms (bound "
+                          f"{bound_t:.4f} ms, {100 * bound_t / ms:.1f}% of it), plain "
+                          f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms")
             result[(hwc, dtype)] = {"max_abs_err": float(err.max()), "ms": ms,
-                                    "plain_ms": plain_ms}
+                                    "plain_ms": plain_ms, "bound_ms": bound_t,
+                                    "bound_by": "bytes", "library_ms": library_ms}
     return result[(FEAT_HWC, torch.bfloat16)]
 
 
@@ -542,8 +534,14 @@ def phase_gather(device) -> dict:
         bench_gather.check(table, idx, 512)
         log("gather", f"{rows} rows {str(dtype)[6:]}: bit-identical to index_select")
         del table, idx
+    # rows read from the table and written out once, the indices read once
+    rows = 1 << 20
+    bound = bound_ms(2 * rows * GATHER_C * 2 + rows * 4)
+    log("gather", f"bound {bound:.4f} ms: kernel at {100 * bound / res['ms']:.1f}% of it, "
+                  f"index_select at {100 * bound / res['plain_ms']:.1f}%")
     return {"launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"]}
+            "plain_ms": res["plain_ms"], "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": res["plain_ms"]}
 
 
 class _LogRecords(logging.Handler):

@@ -36,23 +36,26 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> pathlib.Path:
-    src = CSRC_DIR / f"{name}.cu"
+def library_path(name: str, src=None) -> pathlib.Path:
+    src = pathlib.Path(src) if src else CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> pathlib.Path:
+def build(name: str, src=None) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless its library already exists; returns
     the library path. The compiler's report (``-Xptxas -v``: registers,
-    shared memory, spills) is kept beside it as ``<library>.log``."""
-    out = library_path(name)
+    shared memory, spills) is kept beside it as ``<library>.log``. ``src``,
+    another source with the same interface (an earlier version kept for a
+    timing comparison), is for the benchmark tools; the kernels' wrappers
+    build ``csrc/<name>.cu``."""
+    out = library_path(name, src)
     if out.is_file():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src or CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -20,14 +20,37 @@ launches = 0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build("roi_pool_fwd")))
+def bind(path) -> ctypes.CDLL:
+    """Load a library built from a source with this kernel's C interface
+    (``sos_roi_pool_fwd``) and declare its argument types."""
+    lib = ctypes.CDLL(str(path))
     fn = lib.sos_roi_pool_fwd
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
     fn.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(build("roi_pool_fwd"))
+
+
+def launch(lib: ctypes.CDLL, feat, hs, he, ws, we, valid, row_scale, out, pos) -> None:
+    """Launch ``lib``'s kernel on PyTorch's current stream into the
+    preallocated ``out`` and ``pos`` (or None); the arguments are those the
+    wrapper has checked. Raises when the launch reports an error."""
+    h, w, c = feat.shape
+    p, ph = hs.shape
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        err = lib.sos_roi_pool_fwd(
+            DTYPES[feat.dtype], feat.data_ptr(), h, w, c,
+            hs.data_ptr(), he.data_ptr(), ws.data_ptr(), we.data_ptr(),
+            valid.data_ptr(), None if row_scale is None else row_scale.data_ptr(),
+            p, ph, ws.shape[1], out.data_ptr(), None if pos is None else pos.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"roi_pool_fwd_cuda: kernel launch failed with CUDA error {err}")
 
 
 def check_arg(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
@@ -76,15 +99,6 @@ def roi_pool_fwd_cuda(feat: torch.Tensor, hs: torch.Tensor, he: torch.Tensor,
     pos = torch.empty((p, ph, pw, c), dtype=torch.int32, device=dev) if return_argmax else None
     if p == 0:
         return out, pos
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sos_roi_pool_fwd(
-            DTYPES[feat.dtype], feat.data_ptr(), h, w, c,
-            hs.data_ptr(), he.data_ptr(), ws.data_ptr(), we.data_ptr(),
-            valid.data_ptr(), None if row_scale is None else row_scale.data_ptr(),
-            p, ph, pw, out.data_ptr(), None if pos is None else pos.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"roi_pool_fwd_cuda: kernel launch failed with CUDA error {err}")
+    launch(_lib(), feat, hs, he, ws, we, valid, row_scale, out, pos)
     launches += 1
     return out, pos

@@ -15,12 +15,12 @@ yardstick, rows x c x itemsize bytes over that time:
 from __future__ import annotations
 
 import argparse
-import statistics
-from typing import Callable, Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from ..ops.gather import gather_rows, gather_rows_reference
+from .measure import cuda_ms
 
 
 def make_inputs(table_rows: int, rows: int, c: int, dtype: torch.dtype, device,
@@ -31,21 +31,6 @@ def make_inputs(table_rows: int, rows: int, c: int, dtype: torch.dtype, device,
     table = torch.randn((table_rows, c), generator=g, device=device, dtype=dtype)
     idx = torch.randint(0, table_rows, (rows,), generator=g, device=device, dtype=torch.int32)
     return table, idx
-
-
-def cuda_ms(fn: Callable[[], object], iters: int) -> float:
-    """Median device time of one call of ``fn`` over ``iters`` calls, by
-    CUDA events, after one warm-up call."""
-    fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,9 @@ roi_pool_bwd.cu) against their plain PyTorch versions, on the card. Marked
     python -m pytest tests/test_torch_roi_pool_cuda.py -q
 
 Forward: max pooling selects an input value and the scale multiply is one
-rounding of an exact product, so kernel and plain version agree bit for bit.
+rounding of an exact product, so kernel and plain version agree bit for bit,
+at small shapes and at the real ones (the production inputs of
+``sos_wsod_torch/tools/bench_roi_pool.py`` on full-size maps).
 Backward: both add the same f32 products, the kernel with atomics in an order
 that changes from run to run, so the accumulators agree to f32 rounding of
 sums of up to a few hundred terms (rtol 1e-5, atol 1e-5), and exactly where
@@ -25,6 +27,7 @@ from sos_wsod_torch.ops.roi_pool import (
     roi_pool_backward_reference,
     roi_pool_reference,
 )
+from sos_wsod_torch.tools.bench_roi_pool import production_pool_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -72,6 +75,63 @@ def test_kernel_bit_identical_to_plain(device, dtype, hwc, ties):
     # without the argmax output, the scaled values are the same
     out_n, pos_n = kernel.roi_pool_fwd_cuda(feat, *win, valid, rs, return_argmax=False)
     assert pos_n is None and torch.equal(_bits(out_n), _bits(out_k))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hwc", [(87, 119, 512), (152, 256, 512), (86, 500, 512),
+                                 (87, 119, 1), (87, 119, 3), (87, 119, 200)])
+def test_kernel_bit_identical_at_real_shapes(device, dtype, hwc):
+    """P = 4096 slots (4000 live) on the inference map (87x119), the largest
+    VOC training map (152x256, canvas 1216x2048) and the 688x4000 test
+    canvas's map (86x500), with a tie plateau and the whole-image, sub-cell,
+    corner, sliver and plateau boxes; 512 channels and the masked tails of
+    1, 3 and 200; with and without scale and pos."""
+    h, w, c = hwc
+    feat32, boxes, valid, rs = production_pool_inputs(device, hwc)
+    feat = feat32.to(dtype)
+    win = bin_windows(boxes, valid, h, w, 7, 7, 0.125)
+    for scale in (None, rs):
+        out_p, pos_p = roi_pool_reference(feat, *win, valid, scale)
+        out_k, pos_k = kernel.roi_pool_fwd_cuda(feat, *win, valid, scale)
+        out_n, pos_n = kernel.roi_pool_fwd_cuda(feat, *win, valid, scale, return_argmax=False)
+        torch.cuda.synchronize()
+        assert pos_n is None
+        assert torch.equal(_bits(out_k), _bits(out_p))
+        assert torch.equal(pos_k, pos_p)
+        assert torch.equal(_bits(out_n), _bits(out_p))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_on_a_misaligned_map(device, dtype):
+    """A map whose data does not start on 16 bytes (a view one element into
+    its storage) takes the same kernel's one-channel-at-a-time loads and
+    stores, and agrees bit for bit."""
+    h, w, c = 20, 33, 64
+    feat, boxes, valid, rs = _inputs(device, h, w, c, 37, dtype, ties=True)
+    shifted = torch.cat([feat.new_zeros(1), feat.flatten()])[1:].view(h, w, c)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    win = bin_windows(boxes, valid, h, w, 7, 7, 0.125)
+    out_k, pos_k = kernel.roi_pool_fwd_cuda(shifted, *win, valid, rs)
+    out_p, pos_p = roi_pool_reference(feat, *win, valid, rs)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out_k), _bits(out_p)) and torch.equal(pos_k, pos_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hwc", [(280, 2000, 3), (1, 462000, 3)])
+def test_kernel_on_windows_wider_than_a_chunk(device, dtype, hwc):
+    """Windows whose cells span more than 0xffff flat positions, which the
+    kernel scans in chunks (bf16 positions are 16-bit offsets within one):
+    whole rows a chunk on the 280x2000 map, pieces of one 66000-cell row on
+    the 1x462000 map; rounded values tie across the chunks' borders."""
+    h, w, c = hwc
+    feat, boxes, valid, rs = _inputs(device, h, w, c, 3, dtype, ties=True)
+    win = bin_windows(boxes, valid, h, w, 7, 7, 0.125)
+    assert int((win[1] - win[0]).max() - 1) * w + int((win[3] - win[2]).max()) > 0xffff
+    out_k, pos_k = kernel.roi_pool_fwd_cuda(feat, *win, valid, rs)
+    out_p, pos_p = roi_pool_reference(feat, *win, valid, rs)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out_k), _bits(out_p)) and torch.equal(pos_k, pos_p)
 
 
 def test_public_roi_pool_goes_through_the_kernel(device):
