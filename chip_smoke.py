@@ -14,12 +14,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
      median CUDA-event times with pos (the training call) and without (the
      inference call) beside the bound, and the plain version's time at the
      production shape;
-  4. backward kernel vs plain: the ROIPool backward kernel against its plain
-     version on the forward kernel's argmax at the production shape, f32
-     accumulators within the atomics' rounding bound and exact on integer
-     sums, with median times in bf16 and f32 there and at the top training
-     scale, beside the bound and the time of index_add_ alone on
-     precomputed flat indices;
+  4. backward kernel vs plain: the ROIPool backward kernel on the forward
+     kernel's argmax at the production shape and the top training map, bf16
+     and f32, bit-identical to its plain version run on the CPU and to itself
+     across two launches; the bin-tile pairs it visits and the bytes it
+     reads for them; median times beside the bound, the plain version's and
+     index_add_'s alone on precomputed flat indices;
   5. inference slice: the full-width VGG16 OICR+ model of
      configs/stage1/voc07_oicr_plus.yaml with random weights made from a
      seed, 4 synthetic VOC-sized images through run_stage1_inference in bf16
@@ -179,60 +179,40 @@ def phase_kernel_vs_plain(device) -> dict:
 
 
 def phase_backward_vs_plain(device) -> dict:
-    """The backward kernel on the forward kernel's argmax. Tolerance from
-    the atomics: both versions add the same f32 products g x rs into each
-    cell, in different orders, so a cell whose n terms have absolute sum S
-    differs by at most 2 n 2^-24 S (each side's sum within n u S); with
-    g = 1 and no scale every sum is an integer below 2^24 and must be exact."""
-    from sos_wsod_torch.kernels.roi_pool import roi_pool_fwd_cuda
-    from sos_wsod_torch.kernels.roi_pool_bwd import roi_pool_bwd_cuda
-    from sos_wsod_torch.ops.roi_pool import bin_windows, roi_pool_backward_reference
+    """The backward kernel on the forward kernel's argmax at both maps, bf16
+    and f32: bit-identical to the plain version run on the CPU (which adds
+    each cell's terms in the kernel's order) and to itself across two
+    launches; median times beside the bound, the plain version's time on the
+    card and index_add_'s alone on precomputed flat indices."""
+    from sos_wsod_torch.kernels.roi_pool_bwd import roi_pool_bwd_cuda, tile_incidences
+    from sos_wsod_torch.ops.roi_pool import roi_pool_backward_reference
+    from sos_wsod_torch.tools.bench_roi_pool import (
+        bwd_inputs, bwd_traffic_bytes, check_bwd, index_add_ms)
 
-    gen = torch.Generator(device).manual_seed(SEED)
     result = {}
     for hwc in (FEAT_HWC, TOP_FEAT_HWC):
-        feat32, boxes, valid, rs = production_pool_inputs(device, hwc, SEED)
         h, w, c = hwc
-        win = bin_windows(boxes, valid, h, w, 7, 7, 1.0 / 8)
         for dtype in (torch.bfloat16, torch.float32):
-            _, pos = roi_pool_fwd_cuda(feat32.to(dtype), *win, valid, rs)
-            g = torch.randn(pos.shape, generator=gen, device=device).to(dtype)
-            rs_t = rs.to(dtype).float()
-            acc_k = roi_pool_bwd_cuda(g, pos, rs_t, h, w)
-            acc_p = roi_pool_backward_reference(g, pos, rs_t, h, w)
-            ones = torch.ones_like(g)
-            count = roi_pool_backward_reference(ones, pos, None, h, w)
-            exact = torch.equal(roi_pool_bwd_cuda(ones, pos, None, h, w), count)
-            abs_sum = roi_pool_backward_reference(g.abs(), pos, rs_t, h, w)
-            torch.cuda.synchronize()
-            err = (acc_k - acc_p).abs()
-            bound = 2 * count * 2.0 ** -24 * abs_sum
-            if not exact:
-                raise AssertionError(f"roi_pool_bwd {hwc} {dtype}: integer sums differ")
-            if not bool((err <= bound).all()):
-                raise AssertionError(f"roi_pool_bwd {hwc} {dtype}: {int((err > bound).sum())} "
-                                     f"cells beyond the atomics' bound, max |d| {float(err.max())}")
-            ms = cuda_ms(lambda: roi_pool_bwd_cuda(g, pos, rs_t, h, w), 20)
+            g, pos, rs_t, win, valid = bwd_inputs(device, hwc, dtype, SEED)
+            err = check_bwd({"roi_pool_bwd_cuda": (roi_pool_bwd_cuda, True)}, g, pos, rs_t, win,
+                            valid, h, w)
+            ms = cuda_ms(lambda: roi_pool_bwd_cuda(g, pos, rs_t, *win, valid, h, w), 20)
             plain_ms = cuda_ms(lambda: roi_pool_backward_reference(g, pos, rs_t, h, w), 5)
-            # the library call: index_add_ alone, on flat indices made beforehand
-            ch = torch.arange(c, dtype=torch.int64, device=device)
-            flat = torch.where(pos >= 0, pos.long() * c + ch, h * w * c).reshape(-1)
-            gp = (g.float() * rs_t[:, None, None, None]).reshape(-1)
-            library_ms = cuda_ms(lambda: torch.zeros(h * w * c + 1, device=device)
-                                  .index_add_(0, flat, gp), 20)
-            del flat, gp
-            bound_t = bound_ms(g.numel() * (g.element_size() + 4) + rs_t.numel() * 4
-                               + h * w * c * 4)
-            mb = h * w * c * 4 / 2 ** 20
-            log("kernel", f"roi_pool_bwd {str(dtype)[6:]} g {tuple(g.shape)} -> acc {hwc} f32 "
-                          f"({mb:.1f} MiB): integer sums exact, max |d| {float(err.max()):.3e} "
-                          f"within the bound (max {float(bound.max()):.3e}, up to "
-                          f"{int(count.max())} terms a cell); kernel {ms:.3f} ms (bound "
-                          f"{bound_t:.4f} ms, {100 * bound_t / ms:.1f}% of it), plain "
-                          f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms")
-            result[(hwc, dtype)] = {"max_abs_err": float(err.max()), "ms": ms,
-                                    "plain_ms": plain_ms, "bound_ms": bound_t,
-                                    "bound_by": "bytes", "library_ms": library_ms}
+            library_ms = index_add_ms(g, pos, rs_t, h, w, 20)
+            isz = g.element_size()
+            bound_t = bound_ms(bwd_traffic_bytes(h, w, c, CAPACITY, 7, 7, isz))
+            pairs = tile_incidences(*win, valid)
+            read_gb = pairs * c * (isz + 4) / 1e9
+            log("kernel", f"roi_pool_bwd {str(dtype)[6:]} g {tuple(g.shape)} -> {hwc} f32: "
+                          f"bit-identical to the plain version on the CPU and across two "
+                          f"launches; {pairs} bin-tile pairs, {read_gb:.3f} GB of g and pos "
+                          f"read; kernel {ms:.3f} ms (bound {bound_t:.4f} ms, "
+                          f"{100 * bound_t / ms:.1f}% of it), plain {plain_ms:.3f} ms, "
+                          f"index_add_ {library_ms:.3f} ms")
+            result[(hwc, dtype)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                    "bound_ms": bound_t, "bound_by": "bytes",
+                                    "library_ms": library_ms}
+            del g, pos
     return result[(FEAT_HWC, torch.bfloat16)]
 
 

@@ -24,7 +24,8 @@ an f32 (H, W, C) accumulator and cast to the feature dtype. Ties therefore
 route to the first hit. ``boxes``, ``valid`` and ``row_scale`` get no
 gradient: objectness is input data. ``RoIPoolFunction`` saves the forward's
 ``pos`` (4096 x 49 x 512 int32 = 411 MB a view at full width) instead of
-re-running the forward as the JAX VJP does.
+re-running the forward as the JAX VJP does, and the bin windows and ``valid``
+(0.5 MB) that the CUDA backward uses to find each output tile's bins.
 """
 from __future__ import annotations
 
@@ -142,18 +143,18 @@ class RoIPoolFunction(torch.autograd.Function):
     def forward(ctx, feat, hs, he, ws, we, valid, row_scale):
         out, pos = _pool_forward(feat, (hs, he, ws, we), valid, row_scale, True)
         rs = None if row_scale is None else row_scale.to(feat.dtype).float()
-        ctx.save_for_backward(pos, rs)
+        ctx.save_for_backward(pos, rs, hs, he, ws, we, valid)
         ctx.feat_shape, ctx.feat_dtype = feat.shape, feat.dtype
         ctx.mark_non_differentiable(pos)
         return out, pos
 
     @staticmethod
     def backward(ctx, g, _g_pos):
-        pos, rs = ctx.saved_tensors
+        pos, rs, *win = ctx.saved_tensors
         h, w, _ = ctx.feat_shape
         g = g.contiguous()
         if g.is_cuda:
-            acc = roi_pool_bwd_cuda(g, pos, rs, h, w)
+            acc = roi_pool_bwd_cuda(g, pos, rs, *win, h, w)
         elif g.device.type == "cpu":
             acc = roi_pool_backward_reference(g, pos, rs, h, w)
         else:

@@ -1,0 +1,134 @@
+"""Does stage-1 training repeat from its seed on the card?
+
+    python -m sos_wsod_torch.tools.repeat_train [--steps 4] [--deterministic]
+        [--bwd-source OLD_BWD.cu]
+
+Runs the full-width training slice that ``chip_smoke.py`` drives
+(``configs/stage1/voc07_oicr_plus.yaml`` with random weights from a seed,
+``SOLVER.IMS_PER_BATCH 1``, synthetic 375x500 images with 4000 proposals
+through the real mapper and ``Stage1Trainer``) twice from the same seed in
+this process, and prints each step's ``loss_cls`` and ``total_loss`` of both
+runs, whether each pair is equal bit for bit, and whether the trained
+weights of both runs are. ``--deterministic`` runs both under
+``torch.use_deterministic_algorithms(True, warn_only=True)`` with cuDNN's
+deterministic algorithms and ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, and lists
+the operations that warned they have no deterministic implementation: what
+is left to make a run repeat. ``--bwd-source`` runs the ROIPool backward
+built from another source (an earlier version, e.g. the f32 atomics, through
+the adapter of ``bench_roi_pool.py``) in place of the current kernel, to
+tell its share. The last line is a JSON summary.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pathlib
+import warnings
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+CONFIG = ROOT / "configs" / "stage1" / "voc07_oicr_plus.yaml"
+RAW_HW, NUM_PROPOSALS, SEED = (375, 500), 4000, 0
+WATCH = ("roi_heads.dan.fc1.weight", "roi_heads.box_refinery_2.cls_score.weight",
+         "backbone.plain5.conv3.weight")
+
+
+def train_once(device, steps: int, opts: Sequence = (), raw_hw=RAW_HW,
+               num_proposals: int = NUM_PROPOSALS) -> Dict[str, object]:
+    """One training run from the seed: per-step scalars and the watched
+    weights after the last step. ``opts`` are config overrides (a small
+    width for a run on the CPU)."""
+    from sos_wsod_torch.data.build import batched_stream
+    from sos_wsod_torch.data.mapper_multi import DatasetMapperMultiInput
+    from sos_wsod_torch.engine.synthetic import (
+        build_synthetic_model, load_config, synthetic_train_dicts)
+    from sos_wsod_torch.engine.trainer import Stage1Trainer
+
+    cfg = load_config(str(CONFIG), ["SOLVER.IMS_PER_BATCH", 1, *opts])
+    model = build_synthetic_model(cfg, device, SEED)
+    dicts = synthetic_train_dicts(steps, raw_hw, num_proposals,
+                                  cfg.MODEL.ROI_HEADS.NUM_CLASSES, SEED)
+    stream = batched_stream(
+        dicts, DatasetMapperMultiInput.from_cfg(cfg), cfg.SOLVER.IMS_PER_BATCH,
+        seed=max(cfg.SEED, 0), size_divisibility=cfg.TPU.IMAGE_SIZE_DIVISIBILITY,
+        num_workers=cfg.DATALOADER.NUM_WORKERS,
+        aspect_ratio_grouping=cfg.DATALOADER.ASPECT_RATIO_GROUPING)
+    trainer = Stage1Trainer(cfg, model, stream)
+    trainer.train(0, steps)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    stream.close()
+    hist = trainer.storage.histories()
+    params = dict(model.named_parameters())
+    return {"loss_cls": [v for v, _ in hist["loss_cls"].values()],
+            "total_loss": [v for v, _ in hist["total_loss"].values()],
+            "weights": {n: params[n].detach().clone() for n in WATCH}}
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--deterministic", action="store_true",
+                    help="run both trainings with deterministic algorithms")
+    ap.add_argument("--bwd-source", default=None,
+                    help="a ROIPool backward source to run in place of the current kernel")
+    return ap.parse_args(argv)
+
+
+def use_bwd_source(path: str) -> None:
+    """Route the autograd Function's backward to a build of ``path``."""
+    from sos_wsod_torch.ops import roi_pool as ops
+    from sos_wsod_torch.tools import bench_roi_pool as bench
+
+    builds = bench.bwd_builds(bench.parse_args(["--bwd-baseline", f"other={path}"]))
+    fn, _ = builds["other"]
+    ops.roi_pool_bwd_cuda = fn
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("repeat_train needs a CUDA device")
+    if args.deterministic:   # read when cuBLAS makes its handle: before any CUDA work
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    if args.bwd_source:
+        use_bwd_source(args.bwd_source)
+    runs: List[dict] = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(2):
+            runs.append(train_once(device, args.steps))
+    a, b = runs
+    for step in range(args.steps):
+        la, lb = a["loss_cls"][step], b["loss_cls"][step]
+        ta, tb = a["total_loss"][step], b["total_loss"][step]
+        print(f"step {step}: loss_cls {la!r} / {lb!r} {'same' if la == lb else 'DIFFER'}; "
+              f"total_loss {ta!r} / {tb!r} {'same' if ta == tb else 'DIFFER'}", flush=True)
+    same_w = {n: torch.equal(a["weights"][n], b["weights"][n]) for n in WATCH}
+    print(f"trained weights bit-identical: {same_w}", flush=True)
+    nondet = sorted({str(w.message).split(".")[0] for w in caught
+                     if "does not have a deterministic implementation" in str(w.message)})
+    if args.deterministic:
+        print(f"operations without a deterministic implementation: {nondet or 'none'}",
+              flush=True)
+    summary = {"deterministic": args.deterministic, "bwd_source": args.bwd_source,
+               "steps": args.steps,
+               "loss_cls_equal": a["loss_cls"] == b["loss_cls"],
+               "total_loss_equal": a["total_loss"] == b["total_loss"],
+               f"step{args.steps - 1}_loss_cls": [a["loss_cls"][-1], b["loss_cls"][-1]],
+               "weights_equal": all(same_w.values()), "nondeterministic_ops": nondet}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

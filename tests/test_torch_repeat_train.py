@@ -1,0 +1,27 @@
+"""``sos_wsod_torch/tools/repeat_train.py`` on the CPU: two trainings from one
+seed at a small size repeat bit for bit here (the plain ROIPool backward adds
+in one order), and the tool refuses to measure without a card."""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from sos_wsod_torch.tools import repeat_train
+
+SMALL = ["MODEL.ROI_BOX_HEAD.DAN_DIM", [16, 16], "TPU.COMPUTE_DTYPE", "float32",
+         "INPUT.MIN_SIZE_TRAIN", (40, 48), "TPU.PROPOSAL_CAPACITY", 32,
+         "TPU.PGT_SEED_CAPACITY", 16]
+
+
+def test_two_cpu_trainings_repeat():
+    a, b = (repeat_train.train_once("cpu", 2, SMALL, (50, 70), 30) for _ in range(2))
+    assert len(a["loss_cls"]) == 2 and a["loss_cls"] == b["loss_cls"]
+    assert a["total_loss"] == b["total_loss"]
+    assert set(a["weights"]) == set(repeat_train.WATCH)
+    assert all(torch.equal(a["weights"][n], b["weights"][n]) for n in repeat_train.WATCH)
+
+
+def test_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        repeat_train.main([])

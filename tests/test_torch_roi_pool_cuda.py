@@ -8,10 +8,10 @@ Forward: max pooling selects an input value and the scale multiply is one
 rounding of an exact product, so kernel and plain version agree bit for bit,
 at small shapes and at the real ones (the production inputs of
 ``sos_wsod_torch/tools/bench_roi_pool.py`` on full-size maps).
-Backward: both add the same f32 products, the kernel with atomics in an order
-that changes from run to run, so the accumulators agree to f32 rounding of
-sums of up to a few hundred terms (rtol 1e-5, atol 1e-5), and exactly where
-every term is an integer.
+Backward: the kernel adds each cell's f32 products in ascending bin order,
+the order of the plain version's index_add_ on the CPU, so its map equals the
+plain version run on the CPU bit for bit, and is the same in every launch,
+at small shapes and at the real ones.
 """
 from __future__ import annotations
 
@@ -159,47 +159,116 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         kernel.roi_pool_fwd_cuda(feat, *win, valid.cpu(), rs)
 
 
+def _backward_inputs(feat, boxes, valid, rs, g_dtype, seed=1):
+    """Windows, pos from the forward kernel, a random cotangent and the
+    scales rounded to its type, on the card."""
+    h, w, _ = feat.shape
+    win = bin_windows(boxes, valid, h, w, 7, 7, 0.125)
+    _, pos = kernel.roi_pool_fwd_cuda(feat, *win, valid, rs)
+    g = torch.randn(pos.shape, generator=torch.Generator(feat.device).manual_seed(seed),
+                    device=feat.device).to(g_dtype)
+    return g, pos, rs.to(g_dtype).float(), win
+
+
+def _assert_backward_exact(g, pos, scale, win, valid, h, w):
+    """The kernel's map equals the plain version on the CPU bit for bit, and
+    a second launch gives the same bits."""
+    acc_k = bwd_kernel.roi_pool_bwd_cuda(g, pos, scale, *win, valid, h, w)
+    again = bwd_kernel.roi_pool_bwd_cuda(g, pos, scale, *win, valid, h, w)
+    acc_p = roi_pool_backward_reference(g.cpu(), pos.cpu(), None if scale is None else scale.cpu(),
+                                        h, w)
+    torch.cuda.synchronize()
+    assert acc_k.dtype == torch.float32 and acc_k.shape == (h, w, g.shape[3])
+    assert torch.equal(acc_k.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(acc_k.cpu().view(torch.int32), acc_p.view(torch.int32))
+
+
 @pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hwc", [(9, 13, 1), (20, 33, 3), (35, 44, 200), (40, 64, 512)])
 @pytest.mark.parametrize("ties", [False, True])
 def test_backward_kernel_matches_plain(device, g_dtype, hwc, ties):
     h, w, c = hwc
     feat, boxes, valid, rs = _inputs(device, h, w, c, 37, g_dtype, ties=ties)
-    win = bin_windows(boxes, valid, h, w, 7, 7, 0.125)
-    _, pos = kernel.roi_pool_fwd_cuda(feat, *win, valid, rs)
-    g = torch.randn(pos.shape, generator=torch.Generator(device).manual_seed(1),
-                    device=device).to(g_dtype)
-    rs_t = rs.to(g_dtype).float()
+    g, pos, rs_t, win = _backward_inputs(feat, boxes, valid, rs, g_dtype)
     for scale in (None, rs_t):
-        acc_k = bwd_kernel.roi_pool_bwd_cuda(g, pos, scale, h, w)
-        acc_p = roi_pool_backward_reference(g, pos, scale, h, w)
-        torch.cuda.synchronize()
-        assert acc_k.dtype == torch.float32 and acc_k.shape == (h, w, c)
-        torch.testing.assert_close(acc_k, acc_p, rtol=1e-5, atol=1e-5)
+        _assert_backward_exact(g, pos, scale, win, valid, h, w)
     ones = torch.ones_like(g)
-    assert torch.equal(bwd_kernel.roi_pool_bwd_cuda(ones, pos, None, h, w),
-                       roi_pool_backward_reference(ones, pos, None, h, w))
+    assert torch.equal(bwd_kernel.roi_pool_bwd_cuda(ones, pos, None, *win, valid, h, w).cpu(),
+                       roi_pool_backward_reference(ones.cpu(), pos.cpu(), None, h, w))
+
+
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hwc", [(87, 119, 512), (152, 204, 512), (152, 256, 512),
+                                 (87, 119, 1), (87, 119, 3), (87, 119, 200)])
+def test_backward_kernel_bit_identical_at_real_shapes(device, g_dtype, hwc):
+    """P = 4096 slots (4000 live) of the main path's inputs on the inference
+    map (87x119), the top training map (152x204) and the largest VOC
+    training map (152x256); 512 channels and the ragged slices of 1, 3 and
+    200; with and without scale; two launches alike."""
+    h, w, c = hwc
+    feat32, boxes, valid, rs = production_pool_inputs(device, hwc)
+    g, pos, rs_t, win = _backward_inputs(feat32.to(g_dtype), boxes, valid, rs, g_dtype)
+    for scale in (rs_t, None):
+        _assert_backward_exact(g, pos, scale, win, valid, h, w)
+
+
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernel_on_misaligned_rows(device, g_dtype):
+    """g and pos that do not start on 16 bytes (views one element into their
+    storage): each lane loads its own elements, so the kernel needs no
+    alignment."""
+    h, w, c = 20, 33, 64
+    feat, boxes, valid, rs = _inputs(device, h, w, c, 37, g_dtype, ties=True)
+    g, pos, rs_t, win = _backward_inputs(feat, boxes, valid, rs, g_dtype)
+    g_s = torch.cat([g.new_zeros(1), g.flatten()])[1:].view(g.shape)
+    pos_s = torch.cat([pos.new_zeros(1), pos.flatten()])[1:].view(pos.shape)
+    assert g_s.data_ptr() % 16 != 0 and pos_s.data_ptr() % 16 != 0 and g_s.is_contiguous()
+    _assert_backward_exact(g_s, pos_s, rs_t, win, valid, h, w)
+
+
+def test_backward_kernel_config_is_the_plan(device):
+    """The built library's tile, slice, threads and shared memory are the
+    constants the CPU plan test checks."""
+    plan = bwd_kernel.launch_plan(87, 119, 512)
+    assert bwd_kernel.library_config() == {k: plan[k] for k in
+                                           ("tile", "slice", "threads", "smem_bytes")}
 
 
 def test_backward_kernel_empty_and_rejects(device):
     g = torch.zeros((0, 7, 7, 16), device=device)
     pos = torch.zeros((0, 7, 7, 16), dtype=torch.int32, device=device)
+    win0 = [torch.zeros((0, 7), dtype=torch.int32, device=device) for _ in range(4)]
+    valid0 = torch.zeros(0, dtype=torch.bool, device=device)
     before = bwd_kernel.launches
-    acc = bwd_kernel.roi_pool_bwd_cuda(g, pos, None, 5, 6)
+    acc = bwd_kernel.roi_pool_bwd_cuda(g, pos, None, *win0, valid0, 5, 6)
     assert acc.shape == (5, 6, 16) and not acc.any() and bwd_kernel.launches == before
     g = torch.zeros((2, 7, 7, 16), device=device)
+    pos = torch.zeros((2, 7, 7, 16), dtype=torch.int32, device=device)
+    win = [torch.zeros((2, 7), dtype=torch.int32, device=device) for _ in range(4)]
+    valid = torch.ones(2, dtype=torch.bool, device=device)
     with pytest.raises(ValueError, match="dtype"):
-        bwd_kernel.roi_pool_bwd_cuda(g.half(), pos[:0].new_zeros(g.shape), None, 5, 6)
+        bwd_kernel.roi_pool_bwd_cuda(g.half(), pos, None, *win, valid, 5, 6)
     with pytest.raises(ValueError, match="pos"):
-        bwd_kernel.roi_pool_bwd_cuda(g, pos.new_zeros((2, 7, 7, 8)), None, 5, 6)
+        bwd_kernel.roi_pool_bwd_cuda(g, pos.new_zeros((2, 7, 7, 8)), None, *win, valid, 5, 6)
     with pytest.raises(ValueError, match="CUDA"):
-        bwd_kernel.roi_pool_bwd_cuda(g.cpu(), pos.cpu(), None, 5, 6)
+        bwd_kernel.roi_pool_bwd_cuda(g.cpu(), pos.cpu(), None, *win, valid, 5, 6)
+    with pytest.raises(ValueError, match="hs has shape"):
+        bwd_kernel.roi_pool_bwd_cuda(g, pos, None, win[0][:, :6], *win[1:], valid, 5, 6)
+    with pytest.raises(ValueError, match="we has shape"):
+        bwd_kernel.roi_pool_bwd_cuda(g, pos, None, *win[:3], win[3][:1], valid, 5, 6)
+    with pytest.raises(ValueError, match="ws has dtype"):
+        bwd_kernel.roi_pool_bwd_cuda(g, pos, None, *win[:2], win[2].long(), win[3], valid, 5, 6)
+    with pytest.raises(ValueError, match="valid"):
+        bwd_kernel.roi_pool_bwd_cuda(g, pos, None, *win, valid.int(), 5, 6)
+    with pytest.raises(ValueError, match="index range"):
+        bwd_kernel.roi_pool_bwd_cuda(g, pos, None, *win, valid, 70000, 6)
+    assert bwd_kernel.launches == before
 
 
 def test_autograd_goes_through_both_kernels(device):
     """A feature map that needs a gradient runs the forward and backward
-    kernels once each, and its bf16 gradient equals the CPU path's up to the
-    atomics' sum order (one bf16 rounding of sums within 1e-5)."""
+    kernels once each, and its bf16 gradient equals the CPU path's bit for
+    bit."""
     feat, boxes, valid, rs = _inputs(device, 16, 24, 64, 10, torch.bfloat16)
     g = torch.randn((10, 7, 7, 64), device=device).bfloat16()
     f, fc = feat.clone().requires_grad_(True), feat.cpu().requires_grad_(True)
@@ -208,4 +277,4 @@ def test_autograd_goes_through_both_kernels(device):
     assert (kernel.launches, bwd_kernel.launches) == (fwd0 + 1, bwd0 + 1)
     roi_pool(fc, boxes.cpu(), valid.cpu(), rs.cpu(), spatial_scale=0.125).backward(g.cpu())
     assert f.grad.dtype == torch.bfloat16 and f.grad.is_contiguous()
-    torch.testing.assert_close(f.grad.cpu().float(), fc.grad.float(), rtol=2 ** -7, atol=1e-5)
+    assert torch.equal(f.grad.cpu().view(torch.int16), fc.grad.view(torch.int16))
