@@ -5,9 +5,9 @@
 
 Phases, one line each; any failure raises and the script exits non-zero:
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles every CUDA kernel of the stage-1 inference and training
-     paths with nvcc from the sources in this checkout (into
-     build/sos_wsod_torch/), one nvcc per source, all started together;
+  2. build: compiles every CUDA kernel of the stage-1 and stage-2 paths with
+     nvcc from the sources in this checkout (into build/sos_wsod_torch/), one
+     nvcc per source, all started together;
   3. forward kernel vs plain: the ROIPool forward kernel against its plain
      PyTorch version at the production shape and the top training map, bf16
      and f32, bit-identical out and argmax, with and without pos and scale;
@@ -20,13 +20,24 @@ Phases, one line each; any failure raises and the script exits non-zero:
      across two launches; the bin-tile pairs it visits and the bytes it
      reads for them; median times beside the bound, the plain version's and
      index_add_'s alone on precomputed flat indices;
+  4b. NMS kernels vs plain: the greedy NMS kernels (bitmasks + sweep)
+     against the plain fixpoint at the four shapes the port runs them
+     (sos_wsod_torch/tools/bench_nms.py: stage-1 inference 20 x 4096, mining
+     1 x 1024, the stage-2 RPN 1 x 4495, the box head 20 x 1000), on boxes
+     with chains of suppression, exact ties of score and IoU, and on the
+     reference golden nms.npz: bit-identical keep masks; times beside the
+     bound and the plain version's;
+  4c. ROIAlign kernel vs plain: the multi-level ROIAlign forward at the FPN
+     shapes (p2-p5 of 704 x 960 x 256, 1000 ROIs; bench_roi_align.py), bf16
+     and f32, torch.equal; times beside the bound and the plain version's;
   5. inference slice: the full-width VGG16 OICR+ model of
      configs/stage1/voc07_oicr_plus.yaml with random weights made from a
      seed, 4 synthetic VOC-sized images through run_stage1_inference in bf16
      into the VOC evaluator, which writes the detection-result JSON; checks
-     the JSON and the forward kernel's launch count, holds the kernel against
-     the plain pool on a real backbone feature, and the bf16 outputs against
-     an f32 run of the same model (the kernel's f32 path);
+     the JSON and the ROIPool and NMS kernels' launch counts, holds the pool
+     kernel against the plain pool on a real backbone feature, the
+     detections against one pass with the plain NMS, and the bf16 outputs
+     against an f32 run of the same model (the kernel's f32 path);
   6. training slice: the same full-width model in train mode (dropout 0.5,
      bf16 autocast, SOLVER.IMS_PER_BATCH 1), synthetic 375x500 dataset dicts
      with 4000 proposals through DatasetMapperMultiInput (in the config's
@@ -36,7 +47,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
      trained weights moved and frozen ones unchanged, and one step's bf16
      losses against f32 (dropout off); prints step times, canvases, peak
      memory, and over 2 warm profiled steps the device time of each profiler
-     range and the NMS fixpoint iterations of each mining round;
+     range and the NMS kernel launches of each mining round;
   7. gather: the row-gather microbenchmark (python -m
      sos_wsod_torch.tools.bench_gather) at its default shape, 2^20 random
      rows of 512 bf16 from a 2,871,180-row table, the kernel bit-identical
@@ -49,19 +60,34 @@ Phases, one line each; any failure raises and the script exits non-zero:
      every 2, then --resume to 6 steps, then --eval-only writing the
      detection-result JSON; checks the files, the eval scalars, the resumed
      iterations, the strict checkpoint load, the JSON and the kernel
-     launches of each step and eval, and prints step times.
+     launches of each step and eval, and prints step times;
+  9. stage-2 inference slice: the full-width R50-FPN Faster R-CNN of
+     configs/stage23/voc_baseline.yaml (random weights from a seed,
+     engine/synthetic.py) over 4 synthetic 375x500 images of a VOC tree on
+     disk through build_stage1_test_loader (688 x 917 on a 704 x 960 canvas),
+     GeneralizedRCNN.predict in bf16; checks 1 ROIAlign and 2 NMS launches an
+     image (the RPN's and the box head's), finite detections, one image's
+     detections against the all-plain path (plain NMS and ROIAlign), and
+     prints warm img/s and, over 2 profiled images, the host and device ms of
+     each range (backbone, rpn, roi_align, box_head, nms_topk) with the
+     device's busy share;
+ 10. stage-2 CLI: a stage-2 checkpoint from the seeded initializer, then
+     sos_wsod_torch.tools.train_net_unbias --eval-only in this process at full
+     width on the same tree; prints the detection count and AP50.
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
-tools/profile_torch_inference.py measures the inference throughput baseline.
+tools/profile_torch_inference.py measures the stage-1 inference throughput.
 Then one JSON line with the kernels (each with its launches on the main
 path, its time, the plain version's, the bound and the library call's where
 there is one), the card's line and, last, {"ok": true, "device": {...}}.
 A bound is the bytes the function must move, each input read once and each
 output written once, over the H100's 3.35 TB/s of HBM; every kernel here is
-bound by bytes (its operations are compares and adds, far below 67 TFLOP/s).
+bound by bytes (its operations are compares, adds and, for NMS and ROIAlign,
+a few f32 multiplies and divides a pair or sample, far below 67 TFLOP/s).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -87,11 +113,13 @@ RAW_HW = (375, 500)            # a typical VOC07 image
 NUM_IMAGES = 4
 TRAIN_STEPS = 4
 SEED = 0
-KERNELS = ("roi_pool_fwd", "roi_pool_bwd", "gather_rows")
+KERNELS = ("roi_pool_fwd", "roi_pool_bwd", "gather_rows", "nms", "roi_align_fwd")
 GATHER_TABLE_ROWS, GATHER_C = 2871180, 512
 CLI_SPLITS = (("train", 8), ("val", 4), ("test", 4))
 RANGES = ("h2d", "backbone", "roi_pool", "box_head", "mining", "losses", "backward",
           "optimizer")
+STAGE2_CONFIG = ROOT / "configs" / "stage23" / "voc_baseline.yaml"
+STAGE2_RANGES = ("h2d", "backbone", "rpn", "roi_align", "box_head", "nms_topk")
 
 
 def log(phase: str, msg: str) -> None:
@@ -216,6 +244,94 @@ def phase_backward_vs_plain(device) -> dict:
     return result[(FEAT_HWC, torch.bfloat16)]
 
 
+def _nms_launches() -> int:
+    """Launches of the NMS kernels since their counts were last set to 0;
+    each call of ops/nms.py runs the mask kernel then the sweep, once each."""
+    from sos_wsod_torch.kernels import nms
+
+    if nms.mask_launches != nms.sweep_launches:
+        raise AssertionError(f"NMS mask kernel launched {nms.mask_launches} times, the sweep "
+                             f"{nms.sweep_launches}")
+    return nms.sweep_launches
+
+
+def _reset_nms_launches() -> None:
+    from sos_wsod_torch.kernels import nms
+
+    nms.mask_launches = nms.sweep_launches = 0
+
+
+@contextlib.contextmanager
+def _plain_versions(roi_align: bool = False):
+    """Route the card's NMS (and, with ``roi_align``, its ROIAlign) through
+    the plain versions, for a comparison with the kernels; never on a
+    path whose launches are counted."""
+    from sos_wsod_torch.ops import nms as nms_ops
+    from sos_wsod_torch.ops import roi_align as align_ops
+
+    saved = nms_ops.nms_keep_sorted_cuda, align_ops.roi_align_fwd_cuda
+    nms_ops.nms_keep_sorted_cuda = nms_ops.greedy_keep_sorted_reference
+    if roi_align:
+        def plain_align(features, boxes, valid, level, scales, **kw):
+            out = align_ops.roi_align_levels_reference(features, boxes, valid, level, scales, **kw)
+            return out.permute(0, 2, 3, 1)
+        align_ops.roi_align_fwd_cuda = plain_align
+    try:
+        yield
+    finally:
+        nms_ops.nms_keep_sorted_cuda, align_ops.roi_align_fwd_cuda = saved
+
+
+def phase_nms_vs_plain(device) -> dict:
+    """Kernel C at the four shapes of the port's paths and on the golden:
+    keep masks bit-identical to the plain fixpoint; times beside the bound."""
+    from sos_wsod_torch.ops.nms import nms_mask
+    from sos_wsod_torch.tools import bench_nms
+
+    res = bench_nms.run(device, iters=20, seed=SEED)
+    for name, r in res.items():
+        log("kernel", f"nms {name} B={r['batch']} S={r['s']} thr={r['thr']}: keep masks "
+                      f"bit-identical to the plain fixpoint ({r['kept']} kept); kernels "
+                      f"{r['ms']:.4f} ms (mask {r['mask_ms']:.4f}, sweep {r['sweep_ms']:.4f}), "
+                      f"bound {r['bound_ms']:.4f} ms ({100 * r['bound_ms'] / r['ms']:.1f}% of "
+                      f"it), plain {r['plain_ms']:.3f} ms")
+    z = np.load(ROOT / "tests" / "goldens" / "nms.npz")
+    d = z["dets0"]
+    xyxy = torch.from_numpy(np.stack([d[:, 0] - d[:, 2] / 2, d[:, 1] - d[:, 3] / 2,
+                                      d[:, 0] + d[:, 2] / 2, d[:, 1] + d[:, 3] / 2], 1)
+                            .astype(np.float32)).to(device)
+    valid = torch.ones(len(d), dtype=torch.bool, device=device)
+    for thr in (0.3, 0.5, 0.7):
+        keep = nms_mask(xyxy, torch.from_numpy(z["scores"]).to(device), valid, thr)
+        with _plain_versions():
+            plain = nms_mask(xyxy, torch.from_numpy(z["scores"]).to(device), valid, thr)
+        want = set(z["keep0_%d" % int(thr * 100)].tolist())
+        if not torch.equal(keep, plain) or set(torch.nonzero(keep).flatten().tolist()) != want:
+            raise AssertionError(f"nms.npz at {thr}: the kernel's keep set differs")
+    log("kernel", "nms tests/goldens/nms.npz at 0.3, 0.5, 0.7: the reference's keep sets, "
+                  "equal to the plain fixpoint's")
+    r = res["stage-1 inference"]
+    return {"max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None}
+
+
+def phase_roi_align_vs_plain(device) -> dict:
+    """Kernel D at the FPN shapes, bf16 and f32: torch.equal to the plain
+    version; times beside the bound."""
+    from sos_wsod_torch.tools import bench_roi_align
+
+    res = bench_roi_align.run(device, iters=20, seed=SEED)
+    for dtype, r in res.items():
+        log("kernel", f"roi_align_fwd {dtype} p2-p5 of {bench_roi_align.CANVAS} x "
+                      f"{bench_roi_align.CHANNELS}, P={bench_roi_align.NUM_ROIS} (per level "
+                      f"{r['rois_per_level']}): equal to the plain version; kernel "
+                      f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                      f"({100 * r['bound_ms'] / r['ms']:.1f}% of it), plain {r['plain_ms']:.3f} ms")
+    r = res["bfloat16"]
+    return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None}
+
+
 def phase_slice(device, smi: str) -> int:
     from sos_wsod_torch.data.voc import CLASS_NAMES
     from sos_wsod_torch.engine.defaults import run_stage1_inference
@@ -241,6 +357,7 @@ def phase_slice(device, smi: str) -> int:
                 save_path=str(json_path.parent / "oicr_plus_{}.json"))
 
         roi_pool_kernel.launches = 0
+        _reset_nms_launches()
         times = []
         for _ in range(2):   # first pass cold (cuDNN plans), second warm
             torch.cuda.synchronize()
@@ -249,9 +366,10 @@ def phase_slice(device, smi: str) -> int:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         launches = roi_pool_kernel.launches
-        if launches < 2 * NUM_IMAGES:
-            raise AssertionError(f"ROIPool kernel launched {launches} times for "
-                                 f"{2 * NUM_IMAGES} images")
+        nms_launches = _nms_launches()
+        if launches < 2 * NUM_IMAGES or nms_launches != 2 * NUM_IMAGES:
+            raise AssertionError(f"ROIPool kernel launched {launches} times, NMS kernels "
+                                 f"{nms_launches} times, for {2 * NUM_IMAGES} images")
         dets = json.loads(json_path.read_text())
     if not dets:
         raise AssertionError("the detection-result JSON is empty")
@@ -263,7 +381,31 @@ def phase_slice(device, smi: str) -> int:
                  f"AP50 {results['bbox']['AP50']:.3f}; smoke reading (4 images, evaluate() and "
                  f"JSON included): cold {NUM_IMAGES / times[0]:.2f} img/s, "
                  f"warm {NUM_IMAGES / times[1]:.2f} img/s on {smi}; "
-                 f"ROIPool kernel launches {launches}")
+                 f"ROIPool kernel launches {launches}, NMS kernel launches {nms_launches}")
+
+    # the same images through predict with the kernels and with the plain
+    # NMS: every keep mask is bit-identical, so the detections are too
+    ms = {"kernel": [], "plain": []}
+    for sample in samples:
+        batch = {k: torch.as_tensor(v, device=device) for k, v in sample.items()
+                 if k != "image_id"}
+        out = {}
+        for name in ("kernel", "plain"):
+            with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16), \
+                    (_plain_versions() if name == "plain" else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[name] = model.predict(batch)[0]
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        for field in ("boxes", "scores", "classes", "valid"):
+            if not torch.equal(getattr(out["kernel"], field), getattr(out["plain"], field)):
+                raise AssertionError(f"image {sample['image_id']}: detections' {field} differ "
+                                     f"between the NMS kernel and the plain NMS")
+    log("slice", f"detections with the NMS kernel == with the plain NMS on all "
+                 f"{NUM_IMAGES} images; predict ms with the kernel "
+                 f"{[round(t, 1) for t in ms['kernel']]}, with the plain NMS "
+                 f"{[round(t, 1) for t in ms['plain']]}")
 
     # the main path's pool on a real backbone feature: kernel vs plain, and
     # the bf16 outputs against an f32 run of the same image
@@ -287,50 +429,60 @@ def phase_slice(device, smi: str) -> int:
         raise AssertionError(f"bf16 vs f32: scores differ by {ds}, boxes by {db}")
     log("slice", f"feat {tuple(feat.shape)} {feat.dtype}: slice pool kernel == plain; "
                  f"bf16 vs f32 max |d score| {ds:.2e}, max |d box| {db:.3f} px")
-    return launches
+    return {"roi_pool_fwd": launches, "nms": nms_launches}
 
 
-def _range_ms(prof, names, ctypes_kernels):
-    """Host ms of each profiler range (its wall interval on the host), and
-    device ms of the kernels launched inside it. A kernel counts for the
-    range whose host interval holds its launching op's start, on any thread
-    (the autograd engine runs the backward on its own thread, inside the
-    main thread's ``backward`` range). Kernels launched through ctypes are
-    tied to no op; ``ctypes_kernels`` names their range."""
-    events = prof.events()
-    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
-             if e.name in names and e.device_type == DeviceType.CPU]
+def _kernel_spans(prof, names):
+    """Each device kernel of the profile, as (name, device ms, the profiler
+    range instance (start, end, name) it ran for, or None), from the
+    profiler's raw events: the range whose host interval holds the start of
+    the host op the kernel is linked to (its launching op, on any thread); a
+    kernel linked to no host op (one launched through ctypes) takes the range
+    of the kernel before it on the device, which is the op that prepared its
+    inputs."""
+    raw = prof.profiler.kineto_results.events()
+    host = {e.correlation_id(): e for e in raw if e.device_type() == DeviceType.CPU}
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in raw
+                   if e.device_type() == DeviceType.CPU and e.name() in names)
+    kernels = sorted((e for e in raw
+                      if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()),
+                     key=lambda e: e.start_ns())
+    out, prev = [], None
+    for k in kernels:
+        h = host.get(k.linked_correlation_id()) if k.linked_correlation_id() > 0 else None
+        if h is not None:
+            prev = next((sp for sp in spans if sp[0] <= h.start_ns() <= sp[1]
+                         and sp[2] != h.name()), None)
+        out.append((k.name(), k.duration_ns() / 1e6, prev))
+    return out
+
+
+def _launches_per_range(prof, kernel_name: str, range_name: str):
+    """Launches of ``kernel_name`` within each instance of ``range_name``."""
+    counts = {}
+    for name, _, span in _kernel_spans(prof, (range_name,)):
+        if span is not None:
+            counts[span] = counts.get(span, 0) + (kernel_name in name)
+    return [counts[s] for s in sorted(counts)]
+
+
+def _range_ms(prof, names):
+    """Host ms of each profiler range (its wall interval on the host), device
+    ms of the kernels run for it (``_kernel_spans``; the autograd engine
+    launches the backward on its own thread, inside the main thread's
+    ``backward`` range), and device ms of the kernels outside every range."""
     host = dict.fromkeys(names, 0.0)
-    for s0, s1, n in spans:
-        host[n] += (s1 - s0) / 1e3
-    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.name in host and e.device_type == DeviceType.CPU:
+            host[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    dev = dict.fromkeys(names, 0.0)
     other = 0.0
-    for e in events:
-        if e.device_type != DeviceType.CPU or not e.kernels:
-            continue
-        us = sum(k.duration for k in e.kernels)
-        hit = [n for s0, s1, n in spans if s0 <= e.time_range.start <= s1 and n != e.name]
-        if hit:
-            out[hit[0]] += us / 1e3
+    for _, ms, span in _kernel_spans(prof, names):
+        if span is None:
+            other += ms
         else:
-            other += us / 1e3
-    for e in events:
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            for kernel_name, range_name in ctypes_kernels.items():
-                if kernel_name in e.name:
-                    out[range_name] += (e.time_range.end - e.time_range.start) / 1e3
-    return host, out, other
-
-
-def _mining_nms_iterations(prof):
-    """NMS fixpoint iterations of each mining round in the profile: the
-    ``aten::equal`` convergence checks of ``ops/nms.py`` (nothing else in a
-    round calls it) inside each ``mining`` range, on that range's thread."""
-    events = prof.events()
-    checks = [(e.thread, e.time_range.start) for e in events if e.name == "aten::equal"]
-    rounds = sorted((e.time_range.start, e.time_range.end, e.thread) for e in events
-                    if e.name == "mining" and e.device_type == DeviceType.CPU)
-    return [sum(th == t and s0 <= s <= s1 for th, s in checks) for s0, s1, t in rounds]
+            dev[span[2]] += ms
+    return host, dev, other
 
 
 class _StepProbe:
@@ -360,13 +512,14 @@ class _StepProbe:
             def before_step(self):
                 torch.cuda.synchronize()
                 self.t0 = time.perf_counter()
-                self.counts = (fwd.launches, bwd.launches)
+                self.counts = (fwd.launches, bwd.launches, _nms_launches())
 
             def after_step(self):
                 torch.cuda.synchronize()
                 probe.times.append(time.perf_counter() - self.t0)
                 probe.launches.append((fwd.launches - self.counts[0],
-                                       bwd.launches - self.counts[1]))
+                                       bwd.launches - self.counts[1],
+                                       _nms_launches() - self.counts[2]))
                 probe.scalars.append({k: v for k, (v, it) in self.trainer.storage.latest().items()
                                       if it == self.trainer.iter})
 
@@ -419,10 +572,12 @@ def phase_train(device, smi: str) -> dict:
                  f"{time.perf_counter() - t0:.1f} s")
 
     fwd.launches = bwd.launches = 0
+    _reset_nms_launches()
     torch.cuda.reset_peak_memory_stats(device)
     trainer.train(0, TRAIN_STEPS)
     torch.cuda.synchronize()
-    launches = {"roi_pool_fwd": fwd.launches, "roi_pool_bwd": bwd.launches}
+    launches = {"roi_pool_fwd": fwd.launches, "roi_pool_bwd": bwd.launches,
+                "nms": _nms_launches()}
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
 
     want = _expected_keys(cfg.WSL.REFINE_NUM)
@@ -431,9 +586,11 @@ def phase_train(device, smi: str) -> dict:
             raise AssertionError(f"step {step}: missing {want - set(scalars)}, extra "
                                  f"{set(scalars) - want}, non-finite "
                                  f"{[k for k, v in scalars.items() if not np.isfinite(v)]}")
-    if probe.launches != [(4, 4)] * TRAIN_STEPS or launches != {
-            "roi_pool_fwd": 4 * TRAIN_STEPS, "roi_pool_bwd": 4 * TRAIN_STEPS}:
-        raise AssertionError(f"kernel launches per step {probe.launches}, total {launches}")
+    if probe.launches != [(4, 4, 4)] * TRAIN_STEPS or launches != {
+            "roi_pool_fwd": 4 * TRAIN_STEPS, "roi_pool_bwd": 4 * TRAIN_STEPS,
+            "nms": 4 * TRAIN_STEPS}:
+        raise AssertionError(f"kernel launches (pool fwd, pool bwd, NMS) per step "
+                             f"{probe.launches}, total {launches}")
     for n in watch:
         same = torch.equal(before[n], params[n].detach())
         if same != (".plain1." in n or ".plain2." in n):
@@ -447,7 +604,7 @@ def phase_train(device, smi: str) -> dict:
                      f"proposals; total_loss {sc['total_loss']:.4f} loss_cls "
                      f"{sc['loss_cls']:.4f} data_time {sc['data_time'] * 1e3:.1f} ms")
     warm = statistics.median(probe.times[1:])
-    log("train", f"{TRAIN_STEPS} steps, 4 fwd + 4 bwd kernel launches each; fc6 and "
+    log("train", f"{TRAIN_STEPS} steps, 4 fwd + 4 bwd + 4 NMS kernel launches each; fc6 and "
                  f"box_refinery_2 moved, plain1/plain2 bit-identical; smoke reading: warm "
                  f"median {warm * 1e3:.1f} ms/step = {1 / warm:.2f} img/s, first step "
                  f"{probe.times[0] * 1e3:.1f} ms; peak memory {peak_gb:.2f} GB on {smi}")
@@ -480,8 +637,7 @@ def phase_train(device, smi: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     probe.stream.close()
-    host, per_range, other = _range_ms(
-        prof, RANGES, {"roi_pool_fwd_kernel": "roi_pool", "roi_pool_bwd_kernel": "backward"})
+    host, per_range, other = _range_ms(prof, RANGES)
     busy = sum(per_range.values()) + other
     canvases = [(b[0]["images_s1"].shape[1:3], b[0]["images_s2"].shape[1:3])
                 for b in probe.batches[-2:]]
@@ -490,8 +646,8 @@ def phase_train(device, smi: str) -> dict:
                                      for n, v in per_range.items()) +
         f", device outside the ranges {other / 2:.2f}; busy {busy / 2:.1f} of {wall_ms / 2:.1f} ms wall "
         f"({100 * busy / wall_ms:.1f}%, profiler on); data_time "
-        f"{[round(sc['data_time'] * 1e3, 1) for sc in probe.scalars[-2:]]} ms; NMS fixpoint "
-        f"iterations per mining round {_mining_nms_iterations(prof)}")
+        f"{[round(sc['data_time'] * 1e3, 1) for sc in probe.scalars[-2:]]} ms; NMS kernel "
+        f"launches per mining round {_launches_per_range(prof, 'nms_sweep_kernel', 'mining')}")
     return launches
 
 
@@ -589,19 +745,22 @@ def phase_cli(smi: str) -> dict:
                     ["--config-file", str(CONFIG), *flags, "SOLVER.IMS_PER_BATCH", "1",
                      "SOLVER.CHECKPOINT_PERIOD", "2", "TEST.EVAL_PERIOD", "2",
                      "OUTPUT_DIR", "output", *opts])
-                counts = (fwd.launches, bwd.launches)
+                counts = (fwd.launches, bwd.launches, _nms_launches())
                 t0 = time.perf_counter()
                 out = cli.main(args)
                 torch.cuda.synchronize()
                 return (out, time.perf_counter() - t0,
-                        (fwd.launches - counts[0], bwd.launches - counts[1]))
+                        (fwd.launches - counts[0], bwd.launches - counts[1],
+                         _nms_launches() - counts[2]))
 
             fwd.launches = bwd.launches = 0
+            _reset_nms_launches()
             trainer, secs_a, launches_a = run([], "SOLVER.MAX_ITER", "4")
             trainer_b, secs_b, launches_b = run(["--resume"], "SOLVER.MAX_ITER", "6")
             results, secs_c, launches_c = run(["--eval-only"],
                                               "WSODEVAL.SAVE_DETECTION_RESULT", "True")
-            launches = {"roi_pool_fwd": fwd.launches, "roi_pool_bwd": bwd.launches}
+            launches = {"roi_pool_fwd": fwd.launches, "roi_pool_bwd": bwd.launches,
+                        "nms": _nms_launches()}
             out = pathlib.Path("output")
             files = sorted(p.name for p in out.iterdir())
             last = (out / "last_checkpoint").read_text().strip()
@@ -649,10 +808,12 @@ def phase_cli(smi: str) -> dict:
             or not all(1 <= d["category_id"] <= 20 for d in dets):
         raise AssertionError(f"detection JSON: {len(dets)} records, images "
                              f"{sorted({d['image_id'] for d in dets})} vs {sorted(test_ids)}")
-    # (d) kernel launches: 4 + 4 per training step, 1 forward per eval image
+    # (d) kernel launches: 4 + 4 per training step and 4 NMS (the mining
+    # rounds), 1 forward and 1 NMS per eval image
     n_test = dict(CLI_SPLITS)["test"]
     steps = run_a.step_launches + run_b.step_launches
-    expect = [(4 * 4 + 2 * n_test, 4 * 4), (2 * 4 + n_test, 2 * 4), (n_test, 0)]
+    expect = [(4 * 4 + 2 * n_test, 4 * 4, 4 * 4 + 2 * n_test),
+              (2 * 4 + n_test, 2 * 4, 2 * 4 + n_test), (n_test, 0, n_test)]
     if steps != [(4, 4)] * 6 or [launches_a, launches_b, launches_c] != expect:
         raise AssertionError(f"kernel launches per step {steps}, per run "
                              f"{[launches_a, launches_b, launches_c]} (expected {expect})")
@@ -662,9 +823,145 @@ def phase_cli(smi: str) -> dict:
                f"its start, images {run_b.image_ids[0]}) 2 steps + 1 eval in {secs_b:.1f} s, "
                f"step ms {[round(t, 1) for t in run_b.step_ms]}; files {files}")
     log("cli", f"eval-only loaded {last} (strict: no missing or unexpected keys) in "
-               f"{secs_c:.1f} s: {len(dets)} detections, AP50 {ap:.3f}; ROIPool launches fwd/bwd "
-               f"train+evals {launches_a}, resume {launches_b}, eval-only {launches_c} on {smi}")
+               f"{secs_c:.1f} s: {len(dets)} detections, AP50 {ap:.3f}; launches ROIPool fwd/bwd "
+               f"and NMS: train+evals {launches_a}, resume {launches_b}, eval-only "
+               f"{launches_c} on {smi}")
     return launches
+
+
+def _stage2_batch(sample, device):
+    return {k: torch.as_tensor(v, device=device) for k, v in sample.items() if k != "image_id"}
+
+
+def phase_stage2(device, smi: str) -> dict:
+    """The stage-2 inference slice and the stage-2 CLI at full width on a
+    synthetic VOC tree; returns the kernels' launches of both."""
+    from sos_wsod_torch.data.build import build_stage1_test_loader
+    from sos_wsod_torch.data.datasets.voc import register_all_voc
+    from sos_wsod_torch.engine.defaults import default_argument_parser
+    from sos_wsod_torch.engine.synthetic import (
+        build_synthetic_frcnn, load_config, write_stage2_checkpoint, write_synthetic_voc)
+    from sos_wsod_torch.kernels import roi_align as align
+    from sos_wsod_torch.tools import train_net_unbias as cli
+
+    cwd = os.getcwd()
+    root = logging.getLogger()
+    saved = (root.handlers[:], root.level)
+    records = _LogRecords()
+    logging.getLogger(cli.__name__).addHandler(records)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_voc(tmp, (("test", NUM_IMAGES),), RAW_HW, 8, SEED)
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            cfg = load_config(str(STAGE2_CONFIG))
+            model = build_synthetic_frcnn(cfg, device, SEED)
+            register_all_voc()
+            samples = list(build_stage1_test_loader(cfg, "voc_2007_test"))
+            n_params = sum(p.numel() for p in model.parameters())
+            log("stage2", f"R50-FPN Faster R-CNN {n_params / 1e6:.1f}M params "
+                          f"({model.compute_dtype}), {NUM_IMAGES} images {RAW_HW} -> canvas "
+                          f"{samples[0]['image'].shape[:2]} (image "
+                          f"{tuple(int(x) for x in samples[0]['image_hw'])}) ready in "
+                          f"{time.perf_counter() - t0:.1f} s")
+
+            def infer():
+                dets = []
+                with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+                    for s in samples:
+                        with torch.profiler.record_function("h2d"):
+                            batch = _stage2_batch(s, device)
+                        dets.append(model.predict(batch)[0])
+                torch.cuda.synchronize()
+                return dets
+
+            align.launches = 0
+            _reset_nms_launches()
+            times = []
+            for _ in range(2):   # first pass cold (cuDNN plans), second warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dets = infer()
+                times.append(time.perf_counter() - t0)
+            slice_launches = {"roi_align_fwd": align.launches, "nms": _nms_launches()}
+            if slice_launches != {"roi_align_fwd": 2 * NUM_IMAGES, "nms": 4 * NUM_IMAGES}:
+                raise AssertionError(f"stage-2 launches for 2 x {NUM_IMAGES} images: "
+                                     f"{slice_launches} (1 ROIAlign and 2 NMS an image)")
+            n_det = [int(d.valid.sum()) for d in dets]
+            for d in dets:
+                v = d.valid
+                if not (torch.isfinite(d.boxes[v]).all() and torch.isfinite(d.scores[v]).all()):
+                    raise AssertionError("non-finite stage-2 detection")
+            if not any(n_det):
+                raise AssertionError("no stage-2 detection on any image")
+            log("stage2", f"GeneralizedRCNN.predict x {NUM_IMAGES}: detections per image "
+                          f"{n_det}; launches ROIAlign {slice_launches['roi_align_fwd']}, NMS "
+                          f"{slice_launches['nms']} (2 passes); smoke reading: cold "
+                          f"{NUM_IMAGES / times[0]:.2f} img/s, warm {NUM_IMAGES / times[1]:.2f} "
+                          f"img/s on {smi}")
+
+            # one image through the all-plain path (plain NMS and ROIAlign)
+            batch = _stage2_batch(samples[0], device)
+            with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+                got = model.predict(batch)
+                with _plain_versions(roi_align=True):
+                    want = model.predict(batch)
+            pairs = [(got[0].boxes, want[0].boxes), (got[0].scores, want[0].scores),
+                     (got[0].valid, want[0].valid), (got[1][0], want[1][0]),
+                     (got[1][2], want[1][2]), (got[2][0], want[2][0])]
+            if not all(torch.equal(a, b) for a, b in pairs):
+                raise AssertionError("stage-2 predict with the kernels differs from the "
+                                     "plain path")
+            log("stage2", "image 0: proposals, probabilities and detections with the NMS and "
+                          "ROIAlign kernels == the plain versions'")
+
+            # 2 warm profiled images: host and device ms of each range
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            samples = samples[:2]
+            with torch.profiler.profile(activities=acts) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                infer()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            host, dev, other = _range_ms(prof, STAGE2_RANGES)
+            busy = sum(dev.values()) + other
+            log("stage2", "ms per image over 2 profiled images, range host/device: " +
+                ", ".join(f"{n} {host[n] / 2:.2f}/{dev[n] / 2:.2f}" for n in STAGE2_RANGES) +
+                f", device outside the ranges {other / 2:.2f}; busy {busy / 2:.2f} of "
+                f"{wall_ms / 2:.2f} ms wall ({100 * busy / wall_ms:.1f}%, profiler on); NMS "
+                f"launches per rpn {_launches_per_range(prof, 'nms_sweep_kernel', 'rpn')}, per "
+                f"nms_topk {_launches_per_range(prof, 'nms_sweep_kernel', 'nms_topk')}")
+
+            # the stage-2 CLI: a checkpoint, then --eval-only at full width
+            write_stage2_checkpoint("output2", cfg, SEED, iteration=12000)
+            align.launches = 0
+            _reset_nms_launches()
+            t0 = time.perf_counter()
+            results = cli.main(default_argument_parser().parse_args(
+                ["--config-file", str(STAGE2_CONFIG), "--eval-only", "OUTPUT_DIR", "output2",
+                 "WSODEVAL.SAVE_DETECTION_RESULT", "True"]))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            cli_launches = {"roi_align_fwd": align.launches, "nms": _nms_launches()}
+            cli_dets = json.loads(pathlib.Path(
+                "output2/detection_results/frcnn_voc_2007_test.json").read_text())
+        finally:
+            os.chdir(cwd)
+            logging.getLogger(cli.__name__).removeHandler(records)
+            for h in root.handlers:
+                if h not in saved[0]:
+                    h.close()
+            root.handlers[:], root.level = saved
+    loaded = [m for m in records.messages if m.startswith("Loaded")]
+    if cli_launches != {"roi_align_fwd": NUM_IMAGES, "nms": 2 * NUM_IMAGES} or len(loaded) != 1:
+        raise AssertionError(f"stage-2 CLI: launches {cli_launches}, loaded {loaded}")
+    vals = np.array([[d["score"], *d["bbox"]] for d in cli_dets], np.float64)
+    ap = results["voc_2007_test"]["bbox"]["AP50"]
+    if not cli_dets or not np.isfinite(vals).all() or not np.isfinite(ap):
+        raise AssertionError(f"stage-2 CLI: {len(cli_dets)} detections, AP50 {ap}")
+    log("stage2", f"train_net_unbias --eval-only ({loaded[0]}) in {secs:.1f} s: "
+                  f"{len(cli_dets)} detections, AP50 {ap:.3f}; launches {cli_launches}")
+    return {k: slice_launches[k] + cli_launches[k] for k in slice_launches}
 
 
 def main() -> int:
@@ -676,27 +973,34 @@ def main() -> int:
     phase_build()
     fwd_times = phase_kernel_vs_plain(device)
     bwd_times = phase_backward_vs_plain(device)
+    nms_times = phase_nms_vs_plain(device)
+    align_times = phase_roi_align_vs_plain(device)
     infer_launches = phase_slice(device, smi)
     train_launches = phase_train(device, smi)
     gather = phase_gather(device)
     cli_launches = phase_cli(smi)
-    fwd_launches = (infer_launches + train_launches["roi_pool_fwd"]
-                    + cli_launches["roi_pool_fwd"])
-    bwd_launches = train_launches["roi_pool_bwd"] + cli_launches["roi_pool_bwd"]
-    log("kernels", f"roi_pool_fwd launches: inference {infer_launches}, training "
-                   f"{train_launches['roi_pool_fwd']}, CLI {cli_launches['roi_pool_fwd']}; "
-                   f"roi_pool_bwd launches: training {train_launches['roi_pool_bwd']}, CLI "
-                   f"{cli_launches['roi_pool_bwd']}; gather_rows launches: bench_gather "
-                   f"{gather['launches']}")
+    stage2_launches = phase_stage2(device, smi)
+    paths = {"stage-1 inference": infer_launches, "stage-1 training": train_launches,
+             "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches}
+    launches = {k: sum(p.get(k, 0) for p in paths.values())
+                for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd")}
+    log("kernels", "launches by path: " + "; ".join(
+        f"{name} {p}" for name, p in paths.items()) +
+        f"; gather_rows: bench_gather {gather['launches']}")
     print(json.dumps({"kernels": [
         {"name": "roi_pool_fwd", "route": "cuda", "source": "sos_wsod_torch/csrc/roi_pool_fwd.cu",
          "replaces": "sos_wsod_tpu/ops/pallas/roi_pool_fused.py:240",
-         "launches": fwd_launches, **fwd_times},
+         "launches": launches["roi_pool_fwd"], **fwd_times},
         {"name": "roi_pool_bwd", "route": "cuda", "source": "sos_wsod_torch/csrc/roi_pool_bwd.cu",
          "replaces": "sos_wsod_tpu/ops/pallas/roi_pool_fused.py:303",
-         "launches": bwd_launches, **bwd_times},
+         "launches": launches["roi_pool_bwd"], **bwd_times},
         {"name": "gather_rows", "route": "cuda", "source": "sos_wsod_torch/csrc/gather_rows.cu",
-         "replaces": "tools/bench_pallas_gather.py:68", **gather}]}))
+         "replaces": "tools/bench_pallas_gather.py:68", **gather},
+        {"name": "nms", "route": "cuda", "source": "sos_wsod_torch/csrc/nms.cu",
+         "replaces": "sos_wsod_tpu/ops/nms.py:51", "launches": launches["nms"], **nms_times},
+        {"name": "roi_align_fwd", "route": "cuda", "source": "sos_wsod_torch/csrc/roi_align_fwd.cu",
+         "replaces": "sos_wsod_tpu/ops/roi_align.py:52", "launches": launches["roi_align_fwd"],
+         **align_times}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

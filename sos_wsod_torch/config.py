@@ -1,6 +1,7 @@
 """Config tree with YAML ``_BASE_`` inheritance and dotted overrides.
 
-Reads the repo's released YAML configs (``configs/stage1/*.yaml``) with the
+Reads the repo's released YAML configs (``configs/stage1/*.yaml`` and
+``configs/stage23/*.yaml``) with the
 merge rules of ``sos_wsod_tpu/config/cfg_node.py``: ``_BASE_`` resolves
 relative to the child file, values are coerced to the type of the default,
 and keys the defaults do not name are taken as they are. The defaults hold
@@ -149,11 +150,39 @@ def get_cfg() -> CfgNode:
             "LOAD_PROPOSALS": False,
             "PIXEL_MEAN": [103.530, 116.280, 123.675],   # BGR
             "PIXEL_STD": [1.0, 1.0, 1.0],
-            "BACKBONE": {"FREEZE_AT": 2},
+            "BACKBONE": {"NAME": "build_resnet_backbone", "FREEZE_AT": 2},
             "VGG": {"CONV5_DILATION": 1},
-            "ROI_HEADS": {"NUM_CLASSES": 80, "SCORE_THRESH_TEST": 0.05,
-                          "NMS_THRESH_TEST": 0.5},
-            "ROI_BOX_HEAD": {"POOLER_RESOLUTION": 14, "POOLER_TYPE": "ROIAlignV2",
+            "RESNETS": {"DEPTH": 50, "OUT_FEATURES": ["res4"], "NUM_GROUPS": 1,
+                        "NORM": "FrozenBN", "WIDTH_PER_GROUP": 64, "STRIDE_IN_1X1": True,
+                        "RES5_DILATION": 1, "RES2_OUT_CHANNELS": 256,
+                        "STEM_OUT_CHANNELS": 64,
+                        "DEFORM_ON_PER_STAGE": [False, False, False, False]},
+            "FPN": {"IN_FEATURES": [], "OUT_CHANNELS": 256, "NORM": "", "FUSE_TYPE": "sum"},
+            "ANCHOR_GENERATOR": {"SIZES": [[32, 64, 128, 256, 512]],
+                                 "ASPECT_RATIOS": [[0.5, 1.0, 2.0]],
+                                 "ANGLES": [[-90, 0, 90]], "OFFSET": 0.0},
+            "PROPOSAL_GENERATOR": {"NAME": "RPN", "MIN_SIZE": 0},
+            "RPN": {"HEAD_NAME": "StandardRPNHead", "IN_FEATURES": ["res4"],
+                    "BOUNDARY_THRESH": -1, "IOU_THRESHOLDS": [0.3, 0.7],
+                    "IOU_LABELS": [0, -1, 1], "BATCH_SIZE_PER_IMAGE": 256,
+                    "POSITIVE_FRACTION": 0.5, "BBOX_REG_WEIGHTS": (1.0, 1.0, 1.0, 1.0),
+                    "BBOX_REG_LOSS_TYPE": "smooth_l1", "BBOX_REG_LOSS_WEIGHT": 1.0,
+                    "SMOOTH_L1_BETA": 0.0, "LOSS_WEIGHT": 1.0, "PRE_NMS_TOPK_TRAIN": 12000,
+                    "PRE_NMS_TOPK_TEST": 6000, "POST_NMS_TOPK_TRAIN": 2000,
+                    "POST_NMS_TOPK_TEST": 1000, "NMS_THRESH": 0.7, "CONV_DIMS": [-1],
+                    "UNSUP_LOSS_WEIGHT": 1.0, "LOSS": "CrossEntropy"},
+            "ROI_HEADS": {"NAME": "Res5ROIHeads", "NUM_CLASSES": 80, "IN_FEATURES": ["res4"],
+                          "IOU_THRESHOLDS": [0.5], "IOU_LABELS": [0, 1],
+                          "BATCH_SIZE_PER_IMAGE": 512, "POSITIVE_FRACTION": 0.25,
+                          "SCORE_THRESH_TEST": 0.05, "NMS_THRESH_TEST": 0.5,
+                          "PROPOSAL_APPEND_GT": True, "LOSS": "CrossEntropy"},
+            "ROI_BOX_HEAD": {"NAME": "", "BBOX_REG_LOSS_TYPE": "smooth_l1",
+                             "BBOX_REG_LOSS_WEIGHT": 1.0,
+                             "BBOX_REG_WEIGHTS": (10.0, 10.0, 5.0, 5.0), "SMOOTH_L1_BETA": 0.0,
+                             "POOLER_RESOLUTION": 14, "POOLER_SAMPLING_RATIO": 0,
+                             "POOLER_TYPE": "ROIAlignV2", "NUM_FC": 0, "FC_DIM": 1024,
+                             "NUM_CONV": 0, "CONV_DIM": 256, "NORM": "",
+                             "CLS_AGNOSTIC_BBOX_REG": False, "TRAIN_ON_PRED_BOXES": False,
                              "DAN_DIM": [4096, 4096]},
         },
         "INPUT": {"MIN_SIZE_TRAIN": (800,), "MAX_SIZE_TRAIN": 1333,
@@ -192,6 +221,13 @@ def get_cfg() -> CfgNode:
                 "MIST_P": 0.10, "MIST_THRE": 0.05, "MIST_TYPE": "nms"},
         "OICRPLUS": {"BBOX_UPDATE": False},
         "WSODEVAL": {"SAVE_DETECTION_RESULT": False, "SAVE_PATH": ""},
+        # stages 2-3 (Unbiased Teacher); eval-only reads EVAL_TEACHER
+        "SEMISUPNET": {"Trainer": "ubteacher", "BBOX_THRESHOLD": 0.7,
+                       "PSEUDO_BBOX_SAMPLE": "thresholding", "TEACHER_UPDATE_ITER": 1,
+                       "BURN_UP_STEP": 12000, "EMA_KEEP_RATE": 0.9996,
+                       "UNSUP_LOSS_WEIGHT": 4.0, "SUP_LOSS_WEIGHT": 0.5,
+                       "LOSS_WEIGHT_TYPE": "standard", "BURN_UP_WITH_STRONG_AUG": False,
+                       "HAS_MULTI_LABEL": False, "EVAL_TEACHER": True},
         # the config files' own namespace for padding and dtype knobs
         "TPU": {"PROPOSAL_CAPACITY": 4096, "PROPOSAL_BUCKETS": (), "PGT_SEED_CAPACITY": 1024,
                 "IMAGE_SIZE_DIVISIBILITY": 64, "COMPUTE_DTYPE": "bfloat16"},

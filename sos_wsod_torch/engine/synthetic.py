@@ -1,6 +1,8 @@
 """Random weights, synthetic test samples, synthetic training dataset dicts
 and a synthetic VOC tree on disk, for runs without a checkpoint or a dataset
-(the GPU smoke run, the inference profile, the CLI and the tests).
+(the GPU smoke run, the inference profile, the CLIs and the tests): the
+stage-1 VGG16 OICR+ model under d2-WSL names, and the stage-2/3 R50-FPN
+Faster R-CNN under detectron2's names, with a stage-2 checkpoint writer.
 
 Everything is made with numpy from a seed: the same seed gives the same
 weights, images and proposals on any machine.
@@ -16,8 +18,11 @@ from ..config import get_cfg
 from ..data import transforms as T
 from ..data.proposals import save_proposals
 from ..data.voc import CLASS_NAMES
+from ..models.backbones.resnet import DEPTH_BLOCKS
+from ..models.meta.rcnn import GeneralizedRCNN
 from ..models.meta.rcnn_wsl import MultiInputRCNN
-from .weights import load_weights, state_dict_from_d2_wsl
+from .checkpoint import Checkpointer
+from .weights import load_weights, state_dict_from_d2_frcnn, state_dict_from_d2_wsl
 
 
 def random_d2_wsl_blobs(seed: int, num_classes: int, refine_k: int,
@@ -214,3 +219,101 @@ def write_synthetic_voc(root: str,
                                     f"mcg_voc_2007_{split}_d2.pkl"), ids, boxes, logits)
         ids_per_split[split] = ids
     return ids_per_split
+
+
+def random_d2_frcnn_state_dict(cfg, seed: int) -> Dict[str, np.ndarray]:
+    """Random weights of the R50-FPN Faster R-CNN of ``cfg`` under
+    detectron2's state-dict names, at the config's widths: msra-scaled convs
+    (the stem's scaled down by the pixel range), FrozenBN statistics near the
+    identity with the residual branch's last one at about 0.3, so that the
+    features neither vanish nor grow through the 16 blocks, fan-in scaled
+    FPN, RPN and box-head weights, class scores spread wide enough that
+    detections pass the 0.05 score threshold."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def uniform(shape, lo, hi):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    sd = {}
+
+    def conv(name, cout, cin, k, gain=1.0, bias=False):
+        sd[f"{name}.weight"] = normal((cout, cin, k, k), gain * np.sqrt(2.0 / (cout * k * k)))
+        if bias:
+            sd[f"{name}.bias"] = normal((cout,), 0.01)
+
+    def norm(name, c, gain=1.0):
+        sd[f"{name}.weight"] = uniform((c,), 0.8 * gain, 1.2 * gain)
+        sd[f"{name}.bias"] = normal((c,), 0.1)
+        sd[f"{name}.running_mean"] = normal((c,), 0.1)
+        sd[f"{name}.running_var"] = uniform((c,), 0.8, 1.2)
+
+    r = cfg.MODEL.RESNETS
+    bu = "backbone.bottom_up"
+    conv(f"{bu}.stem.conv1", r.STEM_OUT_CHANNELS, 3, 7, gain=1.0 / 64)
+    norm(f"{bu}.stem.conv1.norm", r.STEM_OUT_CHANNELS)
+    cin, cout, bott = r.STEM_OUT_CHANNELS, r.RES2_OUT_CHANNELS, r.WIDTH_PER_GROUP
+    stage_channels = []
+    for stage, n_blocks in enumerate(DEPTH_BLOCKS[r.DEPTH], start=2):
+        for b in range(n_blocks):
+            pre = f"{bu}.res{stage}.{b}"
+            block_in = cin if b == 0 else cout
+            conv(f"{pre}.conv1", bott, block_in, 1)
+            norm(f"{pre}.conv1.norm", bott)
+            conv(f"{pre}.conv2", bott, bott, 3)
+            norm(f"{pre}.conv2.norm", bott)
+            conv(f"{pre}.conv3", cout, bott, 1)
+            norm(f"{pre}.conv3.norm", cout, gain=0.3)
+            if b == 0:
+                conv(f"{pre}.shortcut", cout, block_in, 1)
+                norm(f"{pre}.shortcut.norm", cout)
+        stage_channels.append(cout)
+        cin, cout, bott = cout, cout * 2, bott * 2
+    f = cfg.MODEL.FPN.OUT_CHANNELS
+    for i, c in enumerate(stage_channels):
+        sd[f"backbone.fpn_lateral{i + 2}.weight"] = normal((f, c, 1, 1), np.sqrt(1.0 / c))
+        sd[f"backbone.fpn_lateral{i + 2}.bias"] = np.zeros(f, np.float32)
+        sd[f"backbone.fpn_output{i + 2}.weight"] = normal((f, f, 3, 3), np.sqrt(1.0 / (9 * f)))
+        sd[f"backbone.fpn_output{i + 2}.bias"] = np.zeros(f, np.float32)
+    a = len(cfg.MODEL.ANCHOR_GENERATOR.SIZES[0]) * len(cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS[0])
+    rpn = "proposal_generator.rpn_head"
+    for name, cout_, k in (("conv", f, 3), ("objectness_logits", a, 1), ("anchor_deltas", 4 * a, 1)):
+        sd[f"{rpn}.{name}.weight"] = normal((cout_, f, k, k), 0.01)
+        sd[f"{rpn}.{name}.bias"] = np.zeros(cout_, np.float32)
+    head = cfg.MODEL.ROI_BOX_HEAD
+    if head.NUM_CONV:
+        raise ValueError("random_d2_frcnn_state_dict: box-head convs are not made")
+    d = f * head.POOLER_RESOLUTION ** 2
+    for i in range(head.NUM_FC):
+        sd[f"roi_heads.box_head.fc{i + 1}.weight"] = normal((head.FC_DIM, d), np.sqrt(1.0 / d))
+        sd[f"roi_heads.box_head.fc{i + 1}.bias"] = np.zeros(head.FC_DIM, np.float32)
+        d = head.FC_DIM
+    k = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    nb = 1 if head.CLS_AGNOSTIC_BBOX_REG else k
+    sd["roi_heads.box_predictor.cls_score.weight"] = normal((k + 1, d), 0.05)
+    sd["roi_heads.box_predictor.cls_score.bias"] = np.zeros(k + 1, np.float32)
+    sd["roi_heads.box_predictor.bbox_pred.weight"] = normal((4 * nb, d), 0.001)
+    sd["roi_heads.box_predictor.bbox_pred.bias"] = np.zeros(4 * nb, np.float32)
+    return sd
+
+
+def build_synthetic_frcnn(cfg, device, seed: int) -> GeneralizedRCNN:
+    """The stage-2/3 detector of ``cfg`` with random weights from ``seed``
+    on ``device``, in eval mode."""
+    sd = state_dict_from_d2_frcnn(random_d2_frcnn_state_dict(cfg, seed))
+    return load_weights(GeneralizedRCNN.from_cfg(cfg, device="meta"), sd, device)
+
+
+def write_stage2_checkpoint(output_dir: str, cfg, seed: int, iteration: int = 0,
+                            name: str = "model_final") -> str:
+    """A stage-2 checkpoint in ``output_dir`` in the stage-1 layout: the
+    student's weights (seed ``seed``) under "model", the teacher's (seed
+    ``seed + 1``) under "teacher", and "iter"; ``last_checkpoint`` names
+    it. Returns the file's path."""
+    student = state_dict_from_d2_frcnn(random_d2_frcnn_state_dict(cfg, seed))
+    teacher = state_dict_from_d2_frcnn(random_d2_frcnn_state_dict(cfg, seed + 1))
+    ckpt = Checkpointer(output_dir)
+    ckpt.save(name, {"model": student, "teacher": teacher, "iter": iteration})
+    return ckpt.path(name)

@@ -1,11 +1,14 @@
-"""Weight bridge: JAX parameter trees and d2-WSL checkpoints -> state dicts.
+"""Weight bridge: JAX parameter trees and d2-WSL / detectron2 checkpoints ->
+state dicts.
 
 The port's module names mirror the JAX package's parameter tree
 (``backbone.plain1.conv1``, ``roi_heads.dan.fc1``, ``roi_heads.wsddn.cls``,
-``roi_heads.box_refinery_0.cls_score``, ...), so a flax tree converts leaf by
-leaf: conv kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in). The
-DAN fc1 rows stay in the (h, w, c) order the JAX tree already holds, because
-the port also pools channels-last.
+``roi_heads.box_refinery_0.cls_score``, ``backbone.bottom_up.res2_block0.conv1``,
+``proposal_generator.head.conv``, ``roi_heads.box_head.fc1``, ...), so a flax
+tree converts leaf by leaf: conv kernels HWIO -> OIHW, Dense kernels
+(in, out) -> (out, in), FrozenBN's four statistics as they are. The fc1 rows
+of the DAN and of the FPN box head stay in the (h, w, c) order the JAX tree
+already holds, because the port also pools channels-last.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if key == "kernel":
                 a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
                 name = "weight"
-            elif key == "bias":
-                name = "bias"
+            elif key in ("bias", "weight", "running_mean", "running_var") and a.ndim == 1:
+                name = key   # a bias, or one of FrozenBN's four statistics
             else:
                 raise ValueError(f"unexpected leaf {'/'.join(path + (key,))}")
             out[".".join(path + (name,))] = torch.from_numpy(np.ascontiguousarray(a))
@@ -71,6 +74,65 @@ def state_dict_from_d2_wsl(blobs: Mapping[str, np.ndarray]) -> Dict[str, torch.T
         elif key.startswith("roi_heads.box_refinery_") and len(parts) == 4:
             name = key
         else:
+            logger.info("unmatched checkpoint key: %s", key)
+            continue
+        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def _split_ensemble(sd: Mapping[str, Any], role: str) -> Mapping[str, Any]:
+    """The ``role`` ("student" or "teacher") half of an ubteacher
+    EnsembleTSModel state dict (``modelStudent.`` / ``modelTeacher.``
+    prefixes); a plain state dict is the student."""
+    prefix = {"student": "modelStudent.", "teacher": "modelTeacher."}[role]
+    if not any(k.startswith(("modelStudent.", "modelTeacher.")) for k in sd):
+        if role == "teacher":
+            raise ValueError("a plain checkpoint has no teacher weights")
+        return sd
+    half = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    if not half:
+        raise ValueError(f"checkpoint has no {role} weights")
+    return half
+
+
+def state_dict_from_d2_frcnn(sd: Mapping[str, Any], role: str = "student"
+                             ) -> Dict[str, torch.Tensor]:
+    """A detectron2 R50-FPN GeneralizedRCNN state dict (the reference's
+    stage-2/3 checkpoints; an ubteacher ensemble gives its ``role`` half) ->
+    port state dict. ``stem.conv1.norm.*`` -> ``stem.conv1_norm.*``,
+    ``res2.0.conv1.*`` -> ``res2_block0.conv1.*``, ``fpn_lateral2`` ->
+    ``fpn.fpn_lateral2``, ``rpn_head`` -> ``head``; box_head fc1's inputs
+    are reordered to channels-last. pixel_mean/std and anchor buffers are
+    skipped (the port's are config constants); other keys are skipped with a
+    log line."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, v in _split_ensemble(sd, role).items():
+        a = np.asarray(v.detach().cpu().numpy() if torch.is_tensor(v) else v, np.float32)
+        parts = key.split(".")
+        name = None
+        if key.startswith(("pixel_mean", "pixel_std")) or "anchor_generator" in key:
+            continue
+        if key.startswith("backbone.bottom_up.") and parts[2] == "stem":
+            # stem.conv1.weight | stem.conv1.norm.X
+            name = ("backbone.bottom_up.stem." +
+                    ("conv1.weight" if parts[4] == "weight" and len(parts) == 5
+                     else f"conv1_norm.{parts[-1]}"))
+        elif key.startswith("backbone.bottom_up.res"):
+            # res2.0.conv1.weight | res2.0.conv1.norm.X | res2.0.shortcut[.norm].X
+            stage, block, conv = parts[2], parts[3], parts[4]
+            norm = "_norm" if "norm" in parts[5:] else ""
+            name = f"backbone.bottom_up.{stage}_block{block}.{conv}{norm}.{parts[-1]}"
+        elif parts[0] == "backbone" and parts[1].startswith(("fpn_lateral", "fpn_output")):
+            name = f"backbone.fpn.{parts[1]}.{parts[2]}"
+        elif key.startswith("proposal_generator.rpn_head."):
+            name = f"proposal_generator.head.{parts[2]}.{parts[3]}"
+        elif key.startswith("roi_heads.box_head.fc") and len(parts) == 4:
+            name = key
+            if parts[2] == "fc1" and parts[3] == "weight" and a.shape[1] % 49 == 0:
+                a = _fc1_channels_last(a)
+        elif key.startswith("roi_heads.box_predictor.") and len(parts) == 4:
+            name = key
+        if name is None:
             logger.info("unmatched checkpoint key: %s", key)
             continue
         out[name] = torch.from_numpy(np.ascontiguousarray(a))

@@ -1,0 +1,142 @@
+"""Region Proposal Network (FPN multi-level), inference branch.
+
+Counterpart of ``sos_wsod_tpu/models/proposal_generator/rpn.py`` (detectron2
+RPN + StandardRPNHead, find_top_rpn_proposals) with ``train=False``: the
+shared 3x3 conv head, per-level objectness and deltas in (H, W, A) order,
+decoding against the anchors, the pre-NMS top-k per level, clipping, one
+NMS over all levels by the coordinate-offset trick (``batched_nms_mask``,
+kernel C on the card) and the post-NMS top-k, all at fixed shapes with a
+validity mask. A top-k is a stable descending sort sliced, so ties keep the
+lower index first, as ``jax.lax.top_k`` does. The losses belong to the
+stage-2/3 training slice and are not ported.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from ...core.boxes import apply_deltas
+from ...ops.nms import batched_nms_mask
+from ..anchors import AnchorGenerator
+
+
+class RPNHead(nn.Module):
+    """3x3 conv + 1x1 objectness and delta heads, shared across levels."""
+
+    def __init__(self, in_channels: int = 256, num_anchors: int = 3, device=None):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, in_channels, 3, padding=1, device=device)
+        self.objectness_logits = nn.Conv2d(in_channels, num_anchors, 1, device=device)
+        self.anchor_deltas = nn.Conv2d(in_channels, num_anchors * 4, 1, device=device)
+
+    def forward(self, features: Sequence[torch.Tensor]):
+        """Per level NCHW (1, C, H, W) -> logits (1, A, H, W), deltas (1, 4A, H, W)."""
+        logits, deltas = [], []
+        for f in features:
+            t = F.relu(self.conv(f))
+            logits.append(self.objectness_logits(t))
+            deltas.append(self.anchor_deltas(t))
+        return logits, deltas
+
+
+def _flatten_level(logits: torch.Tensor, deltas: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(1, A, H, W) -> (H*W*A,); (1, 4A, H, W) -> (H*W*A, 4), in the
+    (H, W, A) order of the anchors."""
+    lg = logits[0].permute(1, 2, 0)
+    dl = deltas[0].permute(1, 2, 0)
+    return lg.reshape(-1), dl.reshape(-1, 4)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def find_top_rpn_proposals(level_logits: List[torch.Tensor], level_boxes: List[torch.Tensor],
+                           image_hw: torch.Tensor, *, pre_nms_topk: int, post_nms_topk: int,
+                           nms_thresh: float = 0.7, min_size: float = 0.0):
+    """Per level (HWA,) logits and (HWA, 4) decoded boxes, image_hw (2,) ->
+    (boxes (post, 4), logits (post,), valid (post,))."""
+    cand_scores, cand_boxes, cand_lvl = [], [], []
+    h = image_hw[0].float()
+    w = image_hw[1].float()
+    lim = torch.stack([w, h, w, h])
+    for lvl, (logits, boxes) in enumerate(zip(level_logits, level_boxes)):
+        k = min(pre_nms_topk, logits.shape[0])
+        scores, idx = _top_k(logits.float(), k)
+        b = torch.minimum(boxes[idx].clamp(min=0.0), lim)
+        keep = ((b[:, 2] - b[:, 0]) > min_size) & ((b[:, 3] - b[:, 1]) > min_size)
+        keep &= torch.isfinite(scores)
+        cand_scores.append(torch.where(keep, scores, torch.full_like(scores, float("-inf"))))
+        cand_boxes.append(b)
+        cand_lvl.append(torch.full((k,), lvl, dtype=torch.int32, device=b.device))
+    scores = torch.cat(cand_scores)
+    boxes = torch.cat(cand_boxes)
+    lvls = torch.cat(cand_lvl)
+    valid = torch.isfinite(scores)
+
+    keep = batched_nms_mask(boxes, scores, lvls, valid, nms_thresh) & valid
+    sel = torch.where(keep, scores, torch.full_like(scores, float("-inf")))
+    top_scores, top_idx = _top_k(sel, post_nms_topk)
+    out_valid = torch.isfinite(top_scores)
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    return (torch.where(out_valid[:, None], boxes[top_idx], zero),
+            torch.where(out_valid, top_scores, zero), out_valid)
+
+
+class RPN(nn.Module):
+    """Multi-level RPN, one image at a time (MODEL.RPN.*)."""
+
+    def __init__(self, in_features: Sequence[str] = ("p2", "p3", "p4", "p5", "p6"),
+                 strides: Sequence[int] = (4, 8, 16, 32, 64),
+                 anchor_sizes: Sequence[Sequence[float]] = ((32,), (64,), (128,), (256,), (512,)),
+                 aspect_ratios: Sequence[Sequence[float]] = ((0.5, 1.0, 2.0),),
+                 anchor_offset: float = 0.0, in_channels: int = 256, nms_thresh: float = 0.7,
+                 min_size: float = 0.0, pre_nms_topk_test: int = 1000,
+                 post_nms_topk_test: int = 1000, device=None):
+        super().__init__()
+        self.in_features = tuple(in_features)
+        self.head = RPNHead(in_channels, len(anchor_sizes[0]) * len(aspect_ratios[0]),
+                            device=device)
+        self.anchor_gen = AnchorGenerator(sizes=anchor_sizes, aspect_ratios=aspect_ratios,
+                                          strides=list(strides), offset=anchor_offset)
+        self.nms_thresh = nms_thresh
+        self.min_size = min_size
+        self.pre_nms_topk_test = pre_nms_topk_test
+        self.post_nms_topk_test = post_nms_topk_test
+        self._anchors = {}   # (feature shapes, device) -> per-level anchors on the device
+
+    def anchors(self, shapes, device) -> List[torch.Tensor]:
+        key = (tuple(shapes), str(device))
+        if key not in self._anchors:
+            self._anchors[key] = [torch.from_numpy(a).to(device) for a in self.anchor_gen(shapes)]
+        return self._anchors[key]
+
+    def forward(self, features: Dict[str, torch.Tensor], image_hw: torch.Tensor):
+        """Inference: per level NCHW (1, C, H, W) features of one image,
+        image_hw (2,) -> (boxes (post, 4), logits (post,), valid (post,))."""
+        feats = [features[f] for f in self.in_features]
+        logits_l, deltas_l = self.head(feats)
+        flat = [_flatten_level(lg, dl) for lg, dl in zip(logits_l, deltas_l)]
+        anchors_l = self.anchors([tuple(f.shape[-2:]) for f in feats], feats[0].device)
+        boxes_l = [apply_deltas(d.float(), a, (1.0, 1.0, 1.0, 1.0))
+                   for (_, d), a in zip(flat, anchors_l)]
+        return find_top_rpn_proposals(
+            [lg.detach() for lg, _ in flat], [b.detach() for b in boxes_l], image_hw,
+            pre_nms_topk=self.pre_nms_topk_test, post_nms_topk=self.post_nms_topk_test,
+            nms_thresh=self.nms_thresh, min_size=self.min_size)
+
+    @classmethod
+    def from_cfg(cls, cfg, strides=None, device=None) -> "RPN":
+        return cls(in_features=tuple(cfg.MODEL.RPN.IN_FEATURES),
+                   strides=tuple(strides or (4, 8, 16, 32, 64)),
+                   anchor_sizes=tuple(tuple(s) for s in cfg.MODEL.ANCHOR_GENERATOR.SIZES),
+                   aspect_ratios=tuple(tuple(a) for a in cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS),
+                   anchor_offset=cfg.MODEL.ANCHOR_GENERATOR.OFFSET,
+                   in_channels=cfg.MODEL.FPN.OUT_CHANNELS, nms_thresh=cfg.MODEL.RPN.NMS_THRESH,
+                   min_size=cfg.MODEL.PROPOSAL_GENERATOR.MIN_SIZE,
+                   pre_nms_topk_test=cfg.MODEL.RPN.PRE_NMS_TOPK_TEST,
+                   post_nms_topk_test=cfg.MODEL.RPN.POST_NMS_TOPK_TEST, device=device)

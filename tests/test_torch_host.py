@@ -29,6 +29,7 @@ from sos_wsod_tpu.evaluation import voc_eval as jvoc
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 STAGE1_CONFIGS = ["stage1/voc07_oicr_plus.yaml", "quick_schedules/oicr_plus_instant_test.yaml",
                   "quick_schedules/oicr_plus_inference_acc_test.yaml"]
+STAGE23_CONFIGS = ["stage23/voc_baseline.yaml", "stage23/voc_ssod.yaml"]
 
 
 def _leaves(node, prefix=""):
@@ -62,18 +63,24 @@ def _assert_same_leaves(port, ref):
         assert type(value) is type(want) and value == want, (key, value, want)
 
 
-@pytest.mark.parametrize("name", [None] + STAGE1_CONFIGS)
+@pytest.mark.parametrize("name", [None] + STAGE1_CONFIGS + STAGE23_CONFIGS)
 def test_config_matches_jax(name):
     """Every key of the port's tree, defaults alone or after merging a
-    stage-1 YAML chain, has the JAX package's value."""
+    stage-1 or stage-2/3 YAML chain, has the JAX package's value."""
     port, ref = tcfg.get_cfg(), jcfg.get_cfg()
     if name:
         port.merge_from_file(str(ROOT / "configs" / name))
         ref.merge_from_file(str(ROOT / "configs" / name))
     _assert_same_leaves(port, ref)
-    if name:   # keys the defaults do not name come through from the YAML
+    if name in STAGE1_CONFIGS:   # keys the defaults do not name come through
         assert port.MODEL.ROI_HEADS.IOU_THRESHOLDS == [0.5, 0.6]
         assert port.OICRPLUS.PROPOSAL_NUM == 1000000
+    if name in STAGE23_CONFIGS:
+        assert port.MODEL.RPN.IN_FEATURES == ["p2", "p3", "p4", "p5", "p6"]
+        assert port.MODEL.ANCHOR_GENERATOR.SIZES == [[32], [64], [128], [256], [512]]
+        assert (port.INPUT.MIN_SIZE_TEST, port.TEST.DETECTIONS_PER_IMAGE) == (688, 100)
+        assert port.SEMISUPNET.EVAL_TEACHER is ("ssod" in name)
+        assert port.DATALOADER.RANDOM_DATA_SEED_PATH.startswith("./dataseed/")
 
 
 def test_config_overrides_coerce_like_jax():

@@ -60,8 +60,9 @@ import os
 from sos_wsod_torch.engine.defaults import default_argument_parser
 from sos_wsod_torch.engine.synthetic import write_synthetic_voc
 from sos_wsod_torch.tools import bench_gather, train_net_stage1
-assert {"sos_wsod_torch.tools.bench_gather",
-        "sos_wsod_torch.tools.train_net_stage1"} <= set(names)
+assert {"sos_wsod_torch.tools.bench_gather", "sos_wsod_torch.tools.train_net_stage1",
+        "sos_wsod_torch.tools.train_net_unbias", "sos_wsod_torch.models.meta.rcnn",
+        "sos_wsod_torch.kernels.nms", "sos_wsod_torch.kernels.roi_align"} <= set(names)
 cwd = os.getcwd()
 with tempfile.TemporaryDirectory() as tmp:
     write_synthetic_voc(tmp, (("train", 1), ("test", 1)), (50, 70), 30, 0)
@@ -78,6 +79,30 @@ with tempfile.TemporaryDirectory() as tmp:
             ["--config-file", str(smoke["CONFIG"]), *flags, *cli_opts]))
     dets = json.load(open("out/detection_results/oicr_plus_voc_2007_test.json"))
     assert dets and {d["image_id"] for d in dets} == {2}, dets[:3]
+
+    # stage 2: one tiny predict, then the stage-2 CLI's --eval-only on a
+    # stage-2 checkpoint
+    import torch
+    from sos_wsod_torch.engine.synthetic import (
+        build_synthetic_frcnn, load_config, write_stage2_checkpoint)
+    from sos_wsod_torch.tools import train_net_unbias
+    s2 = str(smoke["STAGE2_CONFIG"])
+    s2_opts = ["MODEL.DEVICE", "cpu", "TPU.COMPUTE_DTYPE", "float32", "MODEL.RESNETS.DEPTH", "14",
+               "MODEL.FPN.OUT_CHANNELS", "16", "MODEL.ROI_BOX_HEAD.FC_DIM", "32",
+               "MODEL.RPN.PRE_NMS_TOPK_TEST", "32", "MODEL.RPN.POST_NMS_TOPK_TEST", "16",
+               "INPUT.MIN_SIZE_TEST", "48", "OUTPUT_DIR", "out2",
+               "WSODEVAL.SAVE_DETECTION_RESULT", "True"]
+    s2_cfg = load_config(s2, s2_opts)
+    frcnn = build_synthetic_frcnn(s2_cfg, "cpu", 0)
+    with torch.inference_mode():
+        det, (pb, _, pv), _ = frcnn.predict({"image": torch.rand(64, 64, 3) * 255,
+                                             "image_hw": torch.tensor([60.0, 64.0])})
+    assert det.boxes.shape == (100, 4) and pb.shape == (16, 4) and bool(pv.any())
+    write_stage2_checkpoint("out2", s2_cfg, 0)
+    train_net_unbias.main(default_argument_parser().parse_args(
+        ["--config-file", s2, "--eval-only", *s2_opts]))
+    dets = json.load(open("out2/detection_results/frcnn_voc_2007_test.json"))
+    assert {d["image_id"] for d in dets} <= {2}, dets[:3]
     os.chdir(cwd)
 
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu")
@@ -88,17 +113,18 @@ print(len(names))
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    """Every sos_wsod_torch module (the gather tool and the stage-1 CLI
-    among them), chip_smoke.py and the profile tool import with jax, flax
-    and the JAX package blocked, and the host paths that chip_smoke drives
-    run at a small size on the CPU: inference (config, synthetic samples,
-    weights, the evaluator's JSON), one training step (synthetic dicts, the
-    4-view mapper, the batched stream, the trainer) and the CLI on a
-    synthetic VOC tree (one step, then --eval-only's JSON)."""
+    """Every sos_wsod_torch module (the gather tool and both CLIs among
+    them), chip_smoke.py and the profile tool import with jax, flax and the
+    JAX package blocked, and the host paths that chip_smoke drives run at a
+    small size on the CPU: inference (config, synthetic samples, weights,
+    the evaluator's JSON), one training step (synthetic dicts, the 4-view
+    mapper, the batched stream, the trainer), the stage-1 CLI on a
+    synthetic VOC tree (one step, then --eval-only's JSON), one stage-2
+    predict and the stage-2 CLI's --eval-only on a stage-2 checkpoint."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 45
+    assert int(proc.stdout.split()[-1]) >= 55
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
