@@ -25,8 +25,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
      (sos_wsod_torch/tools/bench_nms.py: stage-1 inference 20 x 4096, mining
      1 x 1024, the stage-2 RPN 1 x 4495, the box head 20 x 1000), on boxes
      with chains of suppression, exact ties of score and IoU, and on the
-     reference golden nms.npz: bit-identical keep masks; times beside the
-     bound and the plain version's;
+     reference golden nms.npz: bit-identical keep masks; the two kernels as
+     a caller waits for them (the JSON line's ms) and the mask kernel's and
+     the sweep's device times alone, beside the bound
+     (operations of the pairs the inputs need, or bytes) and the plain
+     version's time;
   4c. ROIAlign kernel vs plain: the multi-level ROIAlign forward at the FPN
      shapes (p2-p5 of 704 x 960 x 256, 1000 ROIs; bench_roi_align.py), bf16
      and f32, torch.equal; times beside the bound and the plain version's;
@@ -80,10 +83,12 @@ tools/profile_torch_inference.py measures the stage-1 inference throughput.
 Then one JSON line with the kernels (each with its launches on the main
 path, its time, the plain version's, the bound and the library call's where
 there is one), the card's line and, last, {"ok": true, "device": {...}}.
-A bound is the bytes the function must move, each input read once and each
-output written once, over the H100's 3.35 TB/s of HBM; every kernel here is
-bound by bytes (its operations are compares, adds and, for NMS and ROIAlign,
-a few f32 multiplies and divides a pair or sample, far below 67 TFLOP/s).
+A bound is the larger of the bytes the function must move, each input read
+once and each output written once, over the H100's 3.35 TB/s of HBM, and its
+f32 operations over 67 TFLOP/s. NMS is bound by operations (those of each
+kept box against every later kept box, and one test a suppressed box);
+every other kernel here by bytes (its operations are compares, adds and, for
+ROIAlign, a few f32 multiplies a sample, far below 67 TFLOP/s).
 """
 from __future__ import annotations
 
@@ -291,10 +296,13 @@ def phase_nms_vs_plain(device) -> dict:
     res = bench_nms.run(device, iters=20, seed=SEED)
     for name, r in res.items():
         log("kernel", f"nms {name} B={r['batch']} S={r['s']} thr={r['thr']}: keep masks "
-                      f"bit-identical to the plain fixpoint ({r['kept']} kept); kernels "
-                      f"{r['ms']:.4f} ms (mask {r['mask_ms']:.4f}, sweep {r['sweep_ms']:.4f}), "
-                      f"bound {r['bound_ms']:.4f} ms ({100 * r['bound_ms'] / r['ms']:.1f}% of "
-                      f"it), plain {r['plain_ms']:.3f} ms")
+                      f"bit-identical to the plain fixpoint ({r['kept']} kept, {r['pairs']} "
+                      f"pairs); device ms mask {r['mask_ms']:.4f} + sweep {r['sweep_ms']:.4f}, "
+                      f"{r['ms']:.4f} ms as called, bound {r['bound_ms']:.4f} ms by "
+                      f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of the call, "
+                      f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of the device time; bytes "
+                      f"{r['bytes_bound_ms']:.5f}, the mask words {r['mask_words_ms']:.4f}), "
+                      f"plain {r['plain_ms']:.3f} ms")
     z = np.load(ROOT / "tests" / "goldens" / "nms.npz")
     d = z["dets0"]
     xyxy = torch.from_numpy(np.stack([d[:, 0] - d[:, 2] / 2, d[:, 1] - d[:, 3] / 2,
@@ -312,7 +320,7 @@ def phase_nms_vs_plain(device) -> dict:
                   "equal to the plain fixpoint's")
     r = res["stage-1 inference"]
     return {"max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None}
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
 
 
 def phase_roi_align_vs_plain(device) -> dict:

@@ -11,7 +11,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Tuple
 
+import numpy as np
 import torch
 
 from .build import build
@@ -21,6 +24,12 @@ mask_launches = 0
 sweep_launches = 0
 
 TILE = 64   # boxes per mask word (kTile in csrc/nms.cu)
+# f32 operations per pair in the mask kernel: 2 fminf, 2 fmaxf and 2
+# subtractions for w and h, 2 clamps, the product, the add and the subtract
+# of the union, its > 0 test and select, the inter > 0 test. The compare
+# against the threshold (2 conversions, a multiply and a compare in f64) is
+# not counted.
+OPS_PER_PAIR = 14
 
 
 def num_words(s: int) -> int:
@@ -28,31 +37,85 @@ def num_words(s: int) -> int:
 
 
 def traffic_bytes(batch: int, s: int) -> int:
-    """Bytes the two kernels must move for ``batch`` problems of ``s``
-    boxes: the boxes and valid flags read, the mask words on and above the
-    diagonal written once and read once by the sweep, the keep flags
-    written."""
+    """Bytes the mask words move, with the boxes, valid flags and keep
+    flags, for ``batch`` problems of ``s`` boxes: the words on and above the
+    diagonal written once and read once by the sweep."""
     w = num_words(s)
     words = TILE * w * (w + 1) // 2
     return batch * (16 * s + s + 2 * 8 * words + s)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build("nms")))
+@functools.lru_cache(maxsize=64)
+def threshold_constants(iou_threshold: float) -> Tuple[float, bool, bool]:
+    """The mask kernel's compare for ``thr``: (m, tie_up, zero_suppresses).
+    With t = f32(thr) and u the next f32 above it, m = (t + u) / 2 (exact in
+    f64), and for inter > 0, f32(inter / safe) > t exactly when inter >
+    m * safe, or when they are equal and ``tie_up``: u's significand is even,
+    so the tie rounds up to u. ``zero_suppresses`` is 0 > t, the bit of a pair
+    whose plain IoU is 0 (inter 0 or NaN)."""
+    t = np.float32(iou_threshold)
+    zero_suppresses = bool(np.float32(0) > t)
+    if math.isnan(t) or t == np.inf:
+        return float(t), False, zero_suppresses       # nothing is above
+    with np.errstate(over="ignore"):
+        u = np.nextafter(t, np.float32(np.inf))
+    # past the largest f32 a value rounds to inf as if the next f32 were 2^128
+    lo = -2.0 ** 128 if t == -np.inf else float(t)
+    hi = 2.0 ** 128 if u == np.inf else float(u)
+    tie_up = u == np.inf or int(u.view(np.uint32)) & 1 == 0
+    return (lo + hi) / 2, bool(tie_up), zero_suppresses
+
+
+def bind(path) -> ctypes.CDLL:
+    """Load a library built from a source with these kernels' C interface
+    (``sos_nms_mask``, ``sos_nms_sweep``) and declare its argument types."""
+    lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sos_nms_mask.argtypes = [vp, ci, ci, ctypes.c_float, vp, vp]
+    lib.sos_nms_mask.argtypes = [vp, vp, ci, ci, ctypes.c_double, ci, ci, vp, vp]
     lib.sos_nms_mask.restype = ci
     lib.sos_nms_sweep.argtypes = [vp, vp, ci, ci, vp, vp]
     lib.sos_nms_sweep.restype = ci
     return lib
 
 
-def nms_mask_words_cuda(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """Launch the bitmask kernel. boxes (B, S, 4) float32 on a CUDA device,
-    score-sorted -> mask (B, S, ceil(S / 64)) int64 words (bit t of word w
-    of row i: box i suppresses box 64 w + t), written on and above the
-    diagonal only."""
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(build("nms"))
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch_mask(lib: ctypes.CDLL, boxes, valid, iou_threshold: float, mask) -> None:
+    """Launch ``lib``'s mask kernel into the preallocated ``mask``; the
+    arguments are those the wrapper has checked."""
+    bsz, s, _ = boxes.shape
+    m, tie_up, zero_suppresses = threshold_constants(iou_threshold)
+    with torch.cuda.device(boxes.device):
+        err = lib.sos_nms_mask(boxes.data_ptr(), valid.data_ptr(), bsz, s, m, int(tie_up),
+                               int(zero_suppresses), mask.data_ptr(), _stream(boxes.device))
+    if err != 0:
+        raise RuntimeError(f"nms_mask_words_cuda: kernel launch failed with CUDA error {err}")
+
+
+def launch_sweep(lib: ctypes.CDLL, mask, valid, keep) -> None:
+    """Launch ``lib``'s sweep kernel into the preallocated ``keep``."""
+    bsz, s = valid.shape
+    with torch.cuda.device(mask.device):
+        err = lib.sos_nms_sweep(mask.data_ptr(), valid.data_ptr(), bsz, s, keep.data_ptr(),
+                                _stream(mask.device))
+    if err != 0:
+        raise RuntimeError(f"nms_sweep_cuda: kernel launch failed with CUDA error {err}")
+
+
+def nms_mask_words_cuda(boxes: torch.Tensor, valid: torch.Tensor,
+                        iou_threshold: float) -> torch.Tensor:
+    """Launch the bitmask kernel. boxes (B, S, 4) float32 and valid (B, S)
+    bool on a CUDA device, score-sorted -> mask (B, S, ceil(S / 64)) int64
+    words (bit t of word w of row i: box i suppresses box 64 w + t), written
+    on and above the diagonal in the tiles that hold a valid row and a valid
+    column only."""
     global mask_launches
     fn = "nms_mask_words_cuda"
     if not boxes.is_cuda:
@@ -61,6 +124,7 @@ def nms_mask_words_cuda(boxes: torch.Tensor, iou_threshold: float) -> torch.Tens
         raise ValueError(f"{fn}: boxes must be (B, S, 4), got {tuple(boxes.shape)}")
     bsz, s, _ = boxes.shape
     check_arg(fn, "boxes", boxes, torch.float32, (bsz, s, 4), boxes.device)
+    check_arg(fn, "valid", valid, torch.bool, (bsz, s), boxes.device)
     if boxes.data_ptr() % 16:
         raise ValueError(f"{fn}: boxes must start at a 16-byte aligned address")
     if bsz > 65535 or num_words(s) > 65535:
@@ -68,12 +132,7 @@ def nms_mask_words_cuda(boxes: torch.Tensor, iou_threshold: float) -> torch.Tens
     mask = torch.empty((bsz, s, num_words(s)), dtype=torch.int64, device=boxes.device)
     if mask.numel() == 0:
         return mask
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = _lib().sos_nms_mask(boxes.data_ptr(), bsz, s, float(iou_threshold),
-                                  mask.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {err}")
+    launch_mask(_lib(), boxes, valid, iou_threshold, mask)
     mask_launches += 1
     return mask
 
@@ -93,12 +152,7 @@ def nms_sweep_cuda(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     keep = torch.empty((bsz, s), dtype=torch.bool, device=mask.device)
     if keep.numel() == 0:
         return keep
-    with torch.cuda.device(mask.device):
-        stream = torch.cuda.current_stream(mask.device).cuda_stream
-        err = _lib().sos_nms_sweep(mask.data_ptr(), valid.data_ptr(), bsz, s, keep.data_ptr(),
-                                   stream)
-    if err != 0:
-        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {err}")
+    launch_sweep(_lib(), mask, valid, keep)
     sweep_launches += 1
     return keep
 
@@ -108,4 +162,4 @@ def nms_keep_sorted_cuda(boxes: torch.Tensor, valid: torch.Tensor,
     """Greedy keep in sorted order: boxes (B, S, 4) float32 and valid (B, S)
     bool, both sorted by score -> keep (B, S) bool. The two kernels, no host
     sync."""
-    return nms_sweep_cuda(nms_mask_words_cuda(boxes, iou_threshold), valid)
+    return nms_sweep_cuda(nms_mask_words_cuda(boxes, valid, iou_threshold), valid)

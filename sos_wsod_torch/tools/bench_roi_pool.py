@@ -50,7 +50,7 @@ from ..kernels import build as kbuild
 from ..kernels import roi_pool as kernel
 from ..kernels import roi_pool_bwd as bwd_kernel
 from ..ops.roi_pool import bin_windows, roi_pool_backward_reference, roi_pool_reference
-from .measure import bound_ms, card_line, cuda_ms
+from .measure import bound_ms, card_line, cuda_ms, fmt_turns, in_turns
 
 FEAT_HWC = (87, 119, 512)      # plain5 of a 688x917 image on its 704x960 canvas
 TOP_FEAT_HWC = (152, 204, 512)  # plain5 at the top training scale, 1216 x ~1621
@@ -156,20 +156,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _turns(fns: Dict[str, Callable[[], object]], iters: int) -> Dict[str, List[float]]:
-    """Median ms of each callable, visited in order and then in reverse."""
-    labels = list(fns)
-    times = {label: [] for label in labels}
-    for label in labels + labels[::-1]:
-        times[label].append(cuda_ms(fns[label], iters))
-    return times
-
-
-def _fmt(times: Dict[str, List[float]]) -> str:
-    return " | ".join(f"{k} " + " / ".join(f"{t:.3f}" for t in v) + " ms"
-                      for k, v in times.items())
-
-
 def bench_fwd(args, device, card: str) -> List[dict]:
     libs = {}
     for spec in args.baseline:
@@ -186,8 +172,8 @@ def bench_fwd(args, device, card: str) -> List[dict]:
         check(pools, feat, win, valid, rs)
         window_gb = window_cells(*win, valid) * c * feat.element_size() / 1e9
         for with_pos in (True, False):
-            times = _turns({label: functools.partial(fn, feat, win, valid, rs, with_pos)
-                            for label, fn in pools.items()}, args.iters)
+            times = in_turns({label: functools.partial(fn, feat, win, valid, rs, with_pos)
+                              for label, fn in pools.items()}, args.iters)
             nbytes = fwd_traffic_bytes(h, w, c, CAPACITY, 7, 7, feat.element_size(), with_pos)
             bound = bound_ms(nbytes)
             cur = statistics.median(times["current"])
@@ -195,7 +181,7 @@ def bench_fwd(args, device, card: str) -> List[dict]:
                    "bound_ms": bound, "window_gb": window_gb, "times": times}
             results.append(res)
             print(f"fwd {h}x{w}x{c} {res['dtype']:8s} {'pos' if with_pos else 'no pos':6s} | "
-                  f"{_fmt(times)} | bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB), current at "
+                  f"{fmt_turns(times)} | bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB), current at "
                   f"{100 * bound / cur:.1f}% of it | windows {window_gb:.2f} GB from L2, "
                   f"{window_gb / cur:.2f} TB/s | {card}", flush=True)
     return results
@@ -332,8 +318,8 @@ def bench_bwd(args, device, card: str) -> List[dict]:
         h, w, c = hwc
         g, pos, rs, win, valid = bwd_inputs(device, hwc, dtype)
         check_bwd(builds, g, pos, rs, win, valid, h, w)
-        times = _turns({label: functools.partial(fn, g, pos, rs, *win, valid, h, w)
-                        for label, (fn, _) in builds.items()}, args.iters)
+        times = in_turns({label: functools.partial(fn, g, pos, rs, *win, valid, h, w)
+                          for label, (fn, _) in builds.items()}, args.iters)
         isz = g.element_size()
         nbytes = bwd_traffic_bytes(h, w, c, CAPACITY, 7, 7, isz)
         bound = bound_ms(nbytes)
@@ -344,7 +330,7 @@ def bench_bwd(args, device, card: str) -> List[dict]:
         res = {"kernel": "bwd", "hwc": hwc, "dtype": str(dtype)[6:], "bound_ms": bound,
                "tile_pairs": pairs, "read_gb": read_gb, "library_ms": lib_ms, "times": times}
         results.append(res)
-        print(f"bwd {h}x{w}x{c} {res['dtype']:8s} | {_fmt(times)} | bound {bound:.4f} ms "
+        print(f"bwd {h}x{w}x{c} {res['dtype']:8s} | {fmt_turns(times)} | bound {bound:.4f} ms "
               f"({nbytes / 1e6:.1f} MB), current at {100 * bound / cur:.1f}% of it | "
               f"{pairs} bin-tile pairs, {read_gb:.3f} GB of g and pos read, "
               f"{read_gb / cur:.2f} TB/s | index_add_ {lib_ms:.3f} ms | {card}", flush=True)

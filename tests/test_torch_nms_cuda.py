@@ -51,7 +51,7 @@ def test_kernels_match_plain_at_the_real_shapes(device, name):
     boxes, scores, valid = _case(device, batch, s, thr, seed=1)
     b, v = sorted_inputs(boxes, scores, valid)
     m0, s0 = kernel.mask_launches, kernel.sweep_launches
-    assert check(b, v, thr) > 0
+    assert check(b, v, thr).sum() > 0
     assert (kernel.mask_launches - m0, kernel.sweep_launches - s0) == (1, 1)
 
 
@@ -87,5 +87,41 @@ def test_empty_and_refused(device):
     assert kernel.nms_keep_sorted_cuda(torch.zeros(2, 0, 4, device=device),
                                        torch.zeros(2, 0, dtype=torch.bool, device=device),
                                        0.5).shape == (2, 0)
+    ones = torch.ones(1, 8, dtype=torch.bool, device=device)
     with pytest.raises(ValueError, match="float32"):
-        kernel.nms_mask_words_cuda(torch.zeros(1, 8, 4, device=device, dtype=torch.float64), 0.5)
+        kernel.nms_mask_words_cuda(torch.zeros(1, 8, 4, device=device, dtype=torch.float64),
+                                   ones, 0.5)
+    with pytest.raises(ValueError, match="valid"):
+        kernel.nms_mask_words_cuda(torch.zeros(1, 8, 4, device=device), ones[:, :7], 0.5)
+
+
+def _odd_case(batch, s, seed):
+    """Boxes with NaN and infinite coordinates, empty and inverted boxes,
+    and valid flags scattered rather than a tail (a valid box after invalid
+    words)."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 200, (batch, s, 2)).astype(np.float32)
+    wh = rng.uniform(-5, 60, (batch, s, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], -1)
+    flat = boxes.reshape(-1)
+    for val in (np.nan, np.inf, -np.inf):
+        flat[rng.integers(0, flat.size, max(1, flat.size // 50))] = val
+    valid = rng.uniform(0, 1, (batch, s)) > 0.5
+    valid[:, s // 2: s // 2 + 130] = False       # whole invalid words mid-problem
+    return torch.from_numpy(boxes), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("thr", [-0.5, 0.0, 1e-45, 0.01, 0.3, 0.7, 1.0, 1.5, float("inf"),
+                                 float("nan")])
+def test_kernels_match_plain_odd_inputs(device, thr):
+    """NaN and infinite coordinates, valid flags out of sorted order, and
+    thresholds at and beyond the ends, straight into the sorted-order keep:
+    bit-identical to the plain fixpoint."""
+    boxes, valid = _odd_case(3, 700, seed=7)
+    check(boxes.to(device).contiguous(), valid.to(device).contiguous(), thr)
+
+
+def test_no_valid_box(device):
+    boxes, _ = _odd_case(2, 300, seed=8)
+    valid = torch.zeros(2, 300, dtype=torch.bool, device=device)
+    assert not kernel.nms_keep_sorted_cuda(boxes.to(device), valid, 0.5).any()
