@@ -32,7 +32,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
      version's time;
   4c. ROIAlign kernel vs plain: the multi-level ROIAlign forward at the FPN
      shapes (p2-p5 of 704 x 960 x 256, 1000 ROIs; bench_roi_align.py), bf16
-     and f32, torch.equal; times beside the bound and the plain version's;
+     and f32, torch.equal; times as called and on the device beside the
+     bound (bytes or operations) and the plain version's; then its
+     adversarial cases (whole-map ROIs, sample cap 16, fixed ratios, V1,
+     3 and 12 channels, long ROIs on a 1344-wide canvas), each torch.equal,
+     with the ROIs of each branch (staged in shared memory or direct);
   5. inference slice: the full-width VGG16 OICR+ model of
      configs/stage1/voc07_oicr_plus.yaml with random weights made from a
      seed, 4 synthetic VOC-sized images through run_stage1_inference in bf16
@@ -87,8 +91,9 @@ A bound is the larger of the bytes the function must move, each input read
 once and each output written once, over the H100's 3.35 TB/s of HBM, and its
 f32 operations over 67 TFLOP/s. NMS is bound by operations (those of each
 kept box against every later kept box, and one test a suppressed box);
-every other kernel here by bytes (its operations are compares, adds and, for
-ROIAlign, a few f32 multiplies a sample, far below 67 TFLOP/s).
+ROIAlign's bound is computed from both (9 f32 operations for each channel of
+each sample of each valid ROI's grid); every other kernel here is bound by
+bytes (its operations are compares and adds).
 """
 from __future__ import annotations
 
@@ -125,6 +130,7 @@ RANGES = ("h2d", "backbone", "roi_pool", "box_head", "mining", "losses", "backwa
           "optimizer")
 STAGE2_CONFIG = ROOT / "configs" / "stage23" / "voc_baseline.yaml"
 STAGE2_RANGES = ("h2d", "backbone", "rpn", "roi_align", "box_head", "nms_topk")
+ADVERSARIAL_LIMIT_S = 60       # each ROIAlign adversarial case, plain version included
 
 
 def log(phase: str, msg: str) -> None:
@@ -325,19 +331,38 @@ def phase_nms_vs_plain(device) -> dict:
 
 def phase_roi_align_vs_plain(device) -> dict:
     """Kernel D at the FPN shapes, bf16 and f32: torch.equal to the plain
-    version; times beside the bound."""
+    version; times beside the bound (bytes or operations, whichever binds).
+    Then the benchmark's adversarial cases (whole-map ROIs on p2, a sample
+    cap of 16, fixed ratios, V1, 3 and 12 channels, long ROIs on a
+    1344-wide canvas), each torch.equal to the plain version within
+    ADVERSARIAL_LIMIT_S."""
     from sos_wsod_torch.tools import bench_roi_align
 
     res = bench_roi_align.run(device, iters=20, seed=SEED)
     for dtype, r in res.items():
         log("kernel", f"roi_align_fwd {dtype} p2-p5 of {bench_roi_align.CANVAS} x "
                       f"{bench_roi_align.CHANNELS}, P={bench_roi_align.NUM_ROIS} (per level "
-                      f"{r['rois_per_level']}): equal to the plain version; kernel "
-                      f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                      f"({100 * r['bound_ms'] / r['ms']:.1f}% of it), plain {r['plain_ms']:.3f} ms")
+                      f"{r['rois_per_level']}; staged {r['staged']}, direct {r['direct']}): "
+                      f"equal to the plain version; kernel {r['ms']:.4f} ms as called, "
+                      f"{r['device_ms']:.4f} ms device, bound {r['bound_ms']:.4f} ms by "
+                      f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of the call; bytes "
+                      f"{r['bytes_bound_ms']:.4f}, operations {r['ops_bound_ms']:.4f}), plain "
+                      f"{r['plain_ms']:.3f} ms")
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (args, kw) in bench_roi_align.adversarial_cases(device, dtype, SEED).items():
+            t0 = time.perf_counter()
+            bench_roi_align.check(*args, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if secs > ADVERSARIAL_LIMIT_S:
+                raise AssertionError(f"roi_align_fwd {name}: {secs:.1f} s, over "
+                                     f"{ADVERSARIAL_LIMIT_S} s")
+            b = bench_roi_align.bounds(*args, **kw)
+            log("kernel", f"roi_align_fwd {str(dtype)[6:]} {name}: equal to the plain version "
+                          f"in {secs:.2f} s (staged {b['staged']}, direct {b['direct']})")
     r = res["bfloat16"]
     return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None}
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
 
 
 def phase_slice(device, smi: str) -> int:
