@@ -37,6 +37,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
      adversarial cases (whole-map ROIs, sample cap 16, fixed ratios, V1,
      3 and 12 channels, long ROIs on a 1344-wide canvas), each torch.equal,
      with the ROIs of each branch (staged in shared memory or direct);
+  4d. ROIAlign backward kernel vs plain: the multi-level ROIAlign backward
+     (the gradient of each level's features) against the plain backward
+     run on the card, at the training step's shapes (512 sampled ROIs on
+     p2-p5 of the 704 x 960 canvas and of the largest training canvas, 1216
+     x 1664) in bf16 and f32, and on the forward's adversarial cases: within
+     BWD_RTOL x max|plain| + BWD_ATOL of the plain f32 sums (bf16: one bf16
+     ulp more), since both sum with atomics in run-dependent orders; times
+     as called and on the device beside the bound, the plain backward's and
+     index_add_'s alone for the same contributions;
   5. inference slice: the full-width VGG16 OICR+ model of
      configs/stage1/voc07_oicr_plus.yaml with random weights made from a
      seed, 4 synthetic VOC-sized images through run_stage1_inference in bf16
@@ -80,7 +89,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
      device's busy share;
  10. stage-2 CLI: a stage-2 checkpoint from the seeded initializer, then
      sos_wsod_torch.tools.train_net_unbias --eval-only in this process at full
-     width on the same tree; prints the detection count and AP50.
+     width on the same tree; prints the detection count and AP50;
+ 11. stage-2 training through the CLI: sos_wsod_torch.tools.train_net_unbias
+     without --eval-only, in this process, at full width (R50-FPN 256, RPN
+     top-k 2000/1000, 512 sampled ROIs, fc 1024, bf16) on a synthetic VOC
+     tree with the pseudo-label JSON and the dataseed of
+     configs/stage23/voc_baseline.yaml; cut: SOLVER.IMG_PER_BATCH_LABEL /
+     _UNLABEL 8 -> 2 and MAX_ITER 4. Checks each step's finite losses and
+     its ROIAlign forward, ROIAlign backward and NMS launches (one each an
+     image), the checkpoint (model, teacher) and the eval at the end; prints
+     the warm step time, peak memory and, for one profiled step, the host and
+     device ms of each range with the device's busy share; then
+     --eval-only on the checkpoint it wrote, which must load it.
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the stage-1 inference throughput.
@@ -123,7 +143,8 @@ RAW_HW = (375, 500)            # a typical VOC07 image
 NUM_IMAGES = 4
 TRAIN_STEPS = 4
 SEED = 0
-KERNELS = ("roi_pool_fwd", "roi_pool_bwd", "gather_rows", "nms", "roi_align_fwd")
+KERNELS = ("roi_pool_fwd", "roi_pool_bwd", "gather_rows", "nms", "roi_align_fwd",
+           "roi_align_bwd")
 GATHER_TABLE_ROWS, GATHER_C = 2871180, 512
 CLI_SPLITS = (("train", 8), ("val", 4), ("test", 4))
 RANGES = ("h2d", "backbone", "roi_pool", "box_head", "mining", "losses", "backward",
@@ -131,6 +152,14 @@ RANGES = ("h2d", "backbone", "roi_pool", "box_head", "mining", "losses", "backwa
 STAGE2_CONFIG = ROOT / "configs" / "stage23" / "voc_baseline.yaml"
 STAGE2_RANGES = ("h2d", "backbone", "rpn", "roi_align", "box_head", "nms_topk")
 ADVERSARIAL_LIMIT_S = 60       # each ROIAlign adversarial case, plain version included
+# stage-2 training (phase 11): the only cut, 8 -> 2 labeled and unlabeled
+# images a step and 4 steps; the splits of the synthetic tree
+STAGE2_TRAIN_CUT = ["SOLVER.IMG_PER_BATCH_LABEL", "2", "SOLVER.IMG_PER_BATCH_UNLABEL", "2",
+                    "SOLVER.MAX_ITER", "4"]
+STAGE2_TRAIN_OPTS = []          # further overrides (none on the card)
+STAGE2_SPLITS = (("train", 8), ("val", 4), ("test", 2))
+STAGE2_TRAIN_RANGES = ("h2d", "backbone", "rpn", "roi_align", "box_head", "losses", "backward",
+                       "optimizer")
 
 
 def log(phase: str, msg: str) -> None:
@@ -363,6 +392,41 @@ def phase_roi_align_vs_plain(device) -> dict:
     r = res["bfloat16"]
     return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+
+
+def phase_roi_align_bwd_vs_plain(device) -> dict:
+    """The ROIAlign backward kernel at the training shapes, both canvases and
+    dtypes, then the adversarial cases: each within its stated tolerance of
+    the plain backward on the card; times beside the bound."""
+    from sos_wsod_torch.tools import bench_roi_align as bench
+
+    res = bench.run_bwd(device, iters=20, seed=SEED)
+    for name, r in res.items():
+        ulp = " + 1 bf16 ulp" if "bfloat16" in name else ""
+        log("kernel", f"roi_align_bwd {name} x {bench.CHANNELS}, P={bench.TRAIN_ROIS} (per level "
+                      f"{r['rois_per_level']}, {r['samples']} samples): max |d| "
+                      f"{r['max_abs_err']:.3e}, tolerance {r['tolerance']:.3e}{ulp} "
+                      f"({bench.BWD_RTOL:g} x max|plain| + {bench.BWD_ATOL:g}); kernel "
+                      f"{r['ms']:.4f} ms as called, {r['device_ms']:.4f} ms device, bound "
+                      f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
+                      f"({100 * r['bound_ms'] / r['ms']:.1f}% of the call; bytes "
+                      f"{r['bytes_bound_ms']:.4f}, operations {r['ops_bound_ms']:.4f}), plain "
+                      f"{r['plain_ms']:.3f} ms, index_add_ {r['library_ms']:.3f} ms")
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (args, kw) in bench.bwd_adversarial_cases(device, dtype, SEED).items():
+            t0 = time.perf_counter()
+            err, tol = bench.check_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if secs > ADVERSARIAL_LIMIT_S:
+                raise AssertionError(f"roi_align_bwd {name}: {secs:.1f} s, over "
+                                     f"{ADVERSARIAL_LIMIT_S} s")
+            log("kernel", f"roi_align_bwd {str(dtype)[6:]} {name}: max |d| {err:.3e} within "
+                          f"{tol:.3e}{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''} in "
+                          f"{secs:.2f} s")
+    r = res[f"{bench.CANVAS[0]}x{bench.CANVAS[1]} bfloat16"]
+    return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
 
 def phase_slice(device, smi: str) -> int:
@@ -997,26 +1061,182 @@ def phase_stage2(device, smi: str) -> dict:
     return {k: slice_launches[k] + cli_launches[k] for k in slice_launches}
 
 
+def phase_stage2_train(smi: str) -> dict:
+    """Stage-2 training through the CLI at full width (the only cut:
+    STAGE2_TRAIN_CUT), then --eval-only on its checkpoint. Returns the
+    kernels' launches of the whole run."""
+    from sos_wsod_torch.engine.defaults import default_argument_parser
+    from sos_wsod_torch.engine.synthetic import (
+        load_config, write_dataseed, write_pseudo_labels, write_synthetic_voc)
+    from sos_wsod_torch.kernels import roi_align as align, roi_align_bwd as align_bwd
+    from sos_wsod_torch.tools import train_net_unbias as cli
+
+    def counts():
+        return align.launches, align_bwd.launches, _nms_launches()
+
+    cli_trainer = cli.UBTeacherTrainer
+    full = load_config(str(STAGE2_CONFIG))
+    cfg = load_config(str(STAGE2_CONFIG), STAGE2_TRAIN_CUT + STAGE2_TRAIN_OPTS)
+    b, max_iter = cfg.SOLVER.IMG_PER_BATCH_LABEL, cfg.SOLVER.MAX_ITER
+
+    class ProbeTrainer(cli_trainer):
+        """The CLI's trainer, timing each step on the card, recording its
+        kernel launches and losses, and profiling the last step."""
+        runs = []
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.step_ms, self.step_launches, self.step_scalars, self.prof = [], [], [], None
+            ProbeTrainer.runs.append(self)
+
+        def run_step(self):
+            torch.cuda.synchronize()
+            t0, before = time.perf_counter(), counts()
+            if self.iter == max_iter - 1:
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as self.prof:
+                    super().run_step()
+                    torch.cuda.synchronize()
+            else:
+                super().run_step()
+            torch.cuda.synchronize()
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            self.step_launches.append(tuple(a - b for a, b in zip(counts(), before)))
+            self.step_scalars.append({k: v for k, (v, it) in self.storage.latest().items()
+                                      if it == self.iter})
+
+    records = _LogRecords()
+    root = logging.getLogger()
+    saved = (root.handlers[:], root.level)
+    logging.getLogger(cli.__name__).addHandler(records)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_synthetic_voc(tmp, STAGE2_SPLITS, RAW_HW, 8, SEED)
+        write_pseudo_labels(tmp, [split for split, _ in STAGE2_SPLITS if split != "test"])
+        n_train = sum(n for split, n in STAGE2_SPLITS if split != "test")
+        write_dataseed(tmp, cfg, n_train)
+        log("stage2-train", f"synthetic VOC tree {dict(STAGE2_SPLITS)} of {RAW_HW} with pseudo "
+                            f"labels and the dataseed ({cfg.DATALOADER.SUP_PERCENT}% of "
+                            f"{n_train} labeled) in {time.perf_counter() - t0:.1f} s; cut "
+                            f"{STAGE2_TRAIN_CUT} (the config's SOLVER.IMG_PER_BATCH_LABEL/_UNLABEL "
+                            f"{full.SOLVER.IMG_PER_BATCH_LABEL}/"
+                            f"{full.SOLVER.IMG_PER_BATCH_UNLABEL}, MAX_ITER "
+                            f"{full.SOLVER.MAX_ITER}); width as configured: "
+                            f"R{cfg.MODEL.RESNETS.DEPTH}-FPN {cfg.MODEL.FPN.OUT_CHANNELS}, RPN "
+                            f"top-k {cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN}/"
+                            f"{cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN}, "
+                            f"{cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE} ROIs, fc "
+                            f"{cfg.MODEL.ROI_BOX_HEAD.FC_DIM}, {cfg.TPU.COMPUTE_DTYPE}")
+        os.chdir(tmp)
+        cli.UBTeacherTrainer = ProbeTrainer
+        try:
+            def run(*flags):
+                return cli.main(default_argument_parser().parse_args(
+                    ["--config-file", str(STAGE2_CONFIG), *flags, *STAGE2_TRAIN_CUT,
+                     *STAGE2_TRAIN_OPTS, "OUTPUT_DIR", "output3"]))
+
+            align.launches = align_bwd.launches = 0
+            _reset_nms_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = run()
+            torch.cuda.synchronize()
+            secs_train = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            train_launches = counts()
+            t0 = time.perf_counter()
+            results = run("--eval-only")
+            torch.cuda.synchronize()
+            secs_eval = time.perf_counter() - t0
+            total = counts()
+            launches = dict(zip(("roi_align_fwd", "roi_align_bwd", "nms"), total))
+            state = torch.load("output3/model_final.pth", map_location="cpu", weights_only=True)
+            hist = trainer.storage.histories()
+        finally:
+            cli.UBTeacherTrainer = cli_trainer
+            os.chdir(cwd)
+            logging.getLogger(cli.__name__).removeHandler(records)
+            for h in root.handlers:
+                if h not in saved[0]:
+                    h.close()
+            root.handlers[:], root.level = saved
+
+    (probe,) = ProbeTrainer.runs
+    loss_keys = ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "total_loss")
+    for step, sc in enumerate(probe.step_scalars):
+        if not all(k in sc and np.isfinite(sc[k]) for k in loss_keys):
+            raise AssertionError(f"stage-2 step {step}: losses {sc}")
+    if probe.step_launches != [(b, b, b)] * max_iter:
+        raise AssertionError(f"stage-2 training launches (ROIAlign fwd, bwd, NMS) per step "
+                             f"{probe.step_launches}, expected {(b, b, b)} each")
+    if set(state) != {"model", "teacher", "optimizer", "scheduler", "generator", "iter"} or \
+            state["iter"] != max_iter:
+        raise AssertionError(f"checkpoint keys {sorted(state)}, iteration {state.get('iter')}")
+    if "voc_2007_test/bbox/AP50" not in hist:
+        raise AssertionError(f"no eval after training: {sorted(hist)}")
+    loaded = [m for m in records.messages if m.startswith("Loaded")]
+    if len(loaded) != 1 or not loaded[0].endswith(f"model_final.pth (iteration {max_iter})"):
+        raise AssertionError(f"eval-only loaded {loaded}")
+    n_test = dict(STAGE2_SPLITS)["test"]
+    eval_launches = tuple(a - c for a, c in zip(total, train_launches))
+    if eval_launches != (n_test, 0, 2 * n_test):
+        raise AssertionError(f"eval-only launches {eval_launches}, expected "
+                             f"{(n_test, 0, 2 * n_test)}")
+    for step, (ms, sc) in enumerate(zip(probe.step_ms, probe.step_scalars)):
+        log("stage2-train", f"step {step}: {ms:.1f} ms" + (" (profiled)" if step == max_iter - 1
+                                                            else "") + "; " +
+            ", ".join(f"{k} {sc[k]:.4f}" for k in loss_keys) +
+            f"; data_time {sc['data_time'] * 1e3:.1f} ms (the loader, on this thread); "
+            f"launches ROIAlign fwd/bwd, NMS {probe.step_launches[step]}")
+    warm = statistics.median(probe.step_ms[1:max_iter - 1])
+    host, dev, other = _range_ms(probe.prof, STAGE2_TRAIN_RANGES)
+    busy = sum(dev.values()) + other
+    log("stage2-train", f"{max_iter} steps of {b} images + eval in {secs_train:.1f} s; smoke "
+                        f"reading: warm step {warm:.1f} ms = {b * 1e3 / warm:.2f} img/s, first "
+                        f"step {probe.step_ms[0]:.1f} ms; peak memory {peak_gb:.2f} GB on {smi}")
+    log("stage2-train", "profiled step, range host/device ms: " +
+        ", ".join(f"{n} {host[n]:.2f}/{dev[n]:.2f}" for n in STAGE2_TRAIN_RANGES) +
+        f", device outside the ranges {other:.2f}; busy {busy:.2f} of "
+        f"{probe.step_ms[-1]:.2f} ms ({100 * busy / probe.step_ms[-1]:.1f}%, profiler on)")
+    log("stage2-train", f"eval-only ({loaded[0]}) in {secs_eval:.1f} s: AP50 "
+                        f"{results['voc_2007_test']['bbox']['AP50']:.3f}; launches of the run "
+                        f"{launches}")
+    return launches
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, logging its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log("time", f"{name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     smi = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    phase_build()
-    fwd_times = phase_kernel_vs_plain(device)
-    bwd_times = phase_backward_vs_plain(device)
-    nms_times = phase_nms_vs_plain(device)
-    align_times = phase_roi_align_vs_plain(device)
-    infer_launches = phase_slice(device, smi)
-    train_launches = phase_train(device, smi)
-    gather = phase_gather(device)
-    cli_launches = phase_cli(smi)
-    stage2_launches = phase_stage2(device, smi)
+    timed("2 build", phase_build)
+    fwd_times = timed("3 ROIPool forward", phase_kernel_vs_plain, device)
+    bwd_times = timed("4 ROIPool backward", phase_backward_vs_plain, device)
+    nms_times = timed("4b NMS", phase_nms_vs_plain, device)
+    align_times = timed("4c ROIAlign forward", phase_roi_align_vs_plain, device)
+    align_bwd_times = timed("4d ROIAlign backward", phase_roi_align_bwd_vs_plain, device)
+    infer_launches = timed("5 stage-1 inference", phase_slice, device, smi)
+    train_launches = timed("6 stage-1 training", phase_train, device, smi)
+    gather = timed("7 gather", phase_gather, device)
+    cli_launches = timed("8 stage-1 CLI", phase_cli, smi)
+    stage2_launches = timed("9-10 stage-2 inference and CLI", phase_stage2, device, smi)
+    stage2_train_launches = timed("11 stage-2 training", phase_stage2_train, smi)
     paths = {"stage-1 inference": infer_launches, "stage-1 training": train_launches,
-             "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches}
+             "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches,
+             "stage-2 training": stage2_train_launches}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
-                for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd")}
+                for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd",
+                          "roi_align_bwd")}
     log("kernels", "launches by path: " + "; ".join(
         f"{name} {p}" for name, p in paths.items()) +
         f"; gather_rows: bench_gather {gather['launches']}")
@@ -1033,7 +1253,10 @@ def main() -> int:
          "replaces": "sos_wsod_tpu/ops/nms.py:51", "launches": launches["nms"], **nms_times},
         {"name": "roi_align_fwd", "route": "cuda", "source": "sos_wsod_torch/csrc/roi_align_fwd.cu",
          "replaces": "sos_wsod_tpu/ops/roi_align.py:52", "launches": launches["roi_align_fwd"],
-         **align_times}]}))
+         **align_times},
+        {"name": "roi_align_bwd", "route": "cuda", "source": "sos_wsod_torch/csrc/roi_align_bwd.cu",
+         "replaces": "sos_wsod_tpu/ops/roi_align.py:52 (autodiff)",
+         "launches": launches["roi_align_bwd"], **align_bwd_times}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

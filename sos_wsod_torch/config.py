@@ -187,12 +187,16 @@ def get_cfg() -> CfgNode:
         },
         "INPUT": {"MIN_SIZE_TRAIN": (800,), "MAX_SIZE_TRAIN": 1333,
                   "MIN_SIZE_TEST": 800, "MAX_SIZE_TEST": 1333,
+                  "RANDOM_FLIP": "horizontal",
                   "CROP": {"ENABLED": False, "TYPE": "relative_range", "SIZE": [0.9, 0.9]}},
         "DATASETS": {"TRAIN": (), "TEST": (), "PROPOSAL_FILES_TRAIN": (),
                      "PROPOSAL_FILES_TEST": (), "PRECOMPUTED_PROPOSAL_TOPK_TRAIN": 2000,
                      "PRECOMPUTED_PROPOSAL_TOPK_TEST": 1000},
         "DATALOADER": {"NUM_WORKERS": 4, "ASPECT_RATIO_GROUPING": True,
-                       "FILTER_EMPTY_ANNOTATIONS": True},
+                       "FILTER_EMPTY_ANNOTATIONS": True,
+                       # stages 2-3: the labeled share of DATASETS.TRAIN, by a dataseed file
+                       "SUP_PERCENT": 100.0, "RANDOM_DATA_SEED": 0,
+                       "RANDOM_DATA_SEED_PATH": "dataseed/COCO_supervision.txt"},
         "SOLVER": {
             "LR_SCHEDULER_NAME": "WarmupMultiStepLR",
             "MAX_ITER": 40000,
@@ -207,6 +211,8 @@ def get_cfg() -> CfgNode:
             "WARMUP_ITERS": 1000,
             "WARMUP_METHOD": "linear",
             "IMS_PER_BATCH": 16,
+            "IMG_PER_BATCH_LABEL": 16,     # stages 2-3: labeled and unlabeled images a step
+            "IMG_PER_BATCH_UNLABEL": 16,
             "CHECKPOINT_PERIOD": 5000,
             "REFERENCE_WORLD_SIZE": 0,
             "BIAS_LR_FACTOR": 1.0,
@@ -221,7 +227,7 @@ def get_cfg() -> CfgNode:
                 "MIST_P": 0.10, "MIST_THRE": 0.05, "MIST_TYPE": "nms"},
         "OICRPLUS": {"BBOX_UPDATE": False},
         "WSODEVAL": {"SAVE_DETECTION_RESULT": False, "SAVE_PATH": ""},
-        # stages 2-3 (Unbiased Teacher); eval-only reads EVAL_TEACHER
+        # stages 2-3 (Unbiased Teacher)
         "SEMISUPNET": {"Trainer": "ubteacher", "BBOX_THRESHOLD": 0.7,
                        "PSEUDO_BBOX_SAMPLE": "thresholding", "TEACHER_UPDATE_ITER": 1,
                        "BURN_UP_STEP": 12000, "EMA_KEEP_RATE": 0.9996,
@@ -230,6 +236,7 @@ def get_cfg() -> CfgNode:
                        "HAS_MULTI_LABEL": False, "EVAL_TEACHER": True},
         # the config files' own namespace for padding and dtype knobs
         "TPU": {"PROPOSAL_CAPACITY": 4096, "PROPOSAL_BUCKETS": (), "PGT_SEED_CAPACITY": 1024,
+                "PGT_CAPACITY": 128,   # ground-truth slots an image, stages 2-3
                 "IMAGE_SIZE_DIVISIBILITY": 64, "COMPUTE_DTYPE": "bfloat16"},
         "SEED": -1,
     })

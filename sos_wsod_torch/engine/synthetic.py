@@ -2,13 +2,17 @@
 and a synthetic VOC tree on disk, for runs without a checkpoint or a dataset
 (the GPU smoke run, the inference profile, the CLIs and the tests): the
 stage-1 VGG16 OICR+ model under d2-WSL names, and the stage-2/3 R50-FPN
-Faster R-CNN under detectron2's names, with a stage-2 checkpoint writer.
+Faster R-CNN under detectron2's names, with a stage-2 checkpoint writer, and
+what stage-2 training reads besides the VOC tree: the pseudo-label JSON of
+its splits (``write_pseudo_labels``) and the dataseed file
+(``write_dataseed``).
 
 Everything is made with numpy from a seed: the same seed gives the same
 weights, images and proposals on any machine.
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict, List, Sequence, Tuple
 
@@ -16,6 +20,7 @@ import numpy as np
 
 from ..config import get_cfg
 from ..data import transforms as T
+from ..data.datasets.voc import load_voc_instances
 from ..data.proposals import save_proposals
 from ..data.voc import CLASS_NAMES
 from ..models.backbones.resnet import DEPTH_BLOCKS
@@ -219,6 +224,43 @@ def write_synthetic_voc(root: str,
                                     f"mcg_voc_2007_{split}_d2.pkl"), ids, boxes, logits)
         ids_per_split[split] = ids
     return ids_per_split
+
+
+def write_pseudo_labels(root: str, splits: Sequence[str] = ("train", "val")) -> None:
+    """The pseudo labels stage 1 would hand stage 2 for the VOC tree under
+    ``root``, ``datasets/VOC2007/pseudo_labels/oicr_plus_voc_2007_{split}.json``
+    (read by ``data/datasets/voc.py:load_voc_instances_wsl``): each image's
+    objects not marked difficult in its XML, {category_id, bbox [x1, y1,
+    x2, y2]} in integers under its integer id, and its classes under
+    "multi_label"."""
+    voc = os.path.join(root, "datasets", "VOC2007")
+    os.makedirs(os.path.join(voc, "pseudo_labels"), exist_ok=True)
+    for split in splits:
+        pseudo, multi_label = {}, {}
+        for d in load_voc_instances(voc, split):
+            key = str(int(d["image_id"]))
+            pseudo[key] = [{"category_id": a["category_id"], "bbox": [int(v) for v in a["bbox"]]}
+                           for a in d["annotations"]]
+            multi_label[key] = sorted({a["category_id"] for a in d["annotations"]})
+        with open(os.path.join(voc, "pseudo_labels", f"oicr_plus_voc_2007_{split}.json"),
+                  "w") as f:
+            json.dump({**pseudo, "multi_label": multi_label}, f)
+
+
+def write_dataseed(root: str, cfg, num_images: int) -> str:
+    """The dataseed file ``divide_label_unlabel`` reads for ``cfg``
+    (DATALOADER.RANDOM_DATA_SEED_PATH, relative to ``root``):
+    {SUP_PERCENT: {RANDOM_DATA_SEED: [index, ...]}}, int(SUP_PERCENT / 100 x
+    ``num_images``) distinct indices of the training set, drawn from the
+    seed. Returns the file's path."""
+    dl = cfg.DATALOADER
+    k = int(dl.SUP_PERCENT / 100.0 * num_images)
+    idx = np.random.RandomState(dl.RANDOM_DATA_SEED).choice(num_images, k, replace=False)
+    path = os.path.join(root, dl.RANDOM_DATA_SEED_PATH)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({str(dl.SUP_PERCENT): {str(dl.RANDOM_DATA_SEED): sorted(idx.tolist())}}, f)
+    return path
 
 
 def random_d2_frcnn_state_dict(cfg, seed: int) -> Dict[str, np.ndarray]:

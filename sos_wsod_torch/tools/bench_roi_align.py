@@ -1,8 +1,8 @@
-"""The multi-level ROIAlign forward kernel (csrc/roi_align_fwd.cu) against its
-plain version at the FPN box head's shapes, on one GPU.
+"""The multi-level ROIAlign kernels (csrc/roi_align_fwd.cu, csrc/roi_align_bwd.cu)
+against their plain versions at the FPN box head's shapes, on one GPU.
 
     python -m sos_wsod_torch.tools.bench_roi_align [--iters 20] [--seed 0]
-        [--baseline LABEL=OLD_ROI_ALIGN_FWD.cu ...]
+        [--baseline LABEL=OLD_ROI_ALIGN_FWD.cu ...] [--kernel fwd|bwd]
 
 The inputs (``fpn_inputs``): p2-p5 of a 704 x 960 canvas, 256 channels
 (176x240, 88x120, 44x60, 22x30), and 1000 proposals inside the 688 x 917
@@ -23,6 +23,18 @@ as called and in device time: an earlier version kept for the comparison
 (``git show <commit>:sos_wsod_torch/csrc/roi_align_fwd.cu >
 build/parent/roi_align_fwd.cu``) or a copy with other constants. Each is
 held equal to the plain version too.
+
+``--kernel bwd`` checks and times the backward instead (``run_bwd``): at
+the training step's shapes, 512 sampled ROIs on p2-p5 of the 704 x 960
+canvas and of the largest training canvas, 1216 x 1664, in bfloat16 and
+float32, and on the adversarial cases, each within ``BWD_RTOL``/``BWD_ATOL``
+of the plain backward run on the card (atomics sum in a run-dependent
+order). It prints the kernel's time as called and on the device beside the
+bound (g read once and every level's gradient written once, or
+``kernels/roi_align_bwd.py:OPS_PER_SAMPLE`` f32 operations for each channel
+of each sample), the plain backward's time, and ``index_add_``'s time for
+the same contributions alone (precomputed rows and terms), the library
+call that a scatter-add would be.
 """
 from __future__ import annotations
 
@@ -36,8 +48,10 @@ import torch
 
 from ..kernels import build as kbuild
 from ..kernels import roi_align as kernel
+from ..kernels import roi_align_bwd as bwd_kernel
 from ..models.roi_heads.standard import assign_boxes_to_levels
-from ..ops.roi_align import roi_align_levels_reference
+from ..ops.roi_align import (
+    _sample_geometry, roi_align_levels_backward_reference, roi_align_levels_reference)
 from .measure import bound_ms, card_line, cuda_ms, device_ms, fmt_turns, in_turns, ops_bound_ms
 
 CANVAS = (704, 960)
@@ -45,6 +59,14 @@ IMAGE_HW = (688, 917)
 STRIDES = (4, 8, 16, 32)
 NUM_ROIS = 1000
 CHANNELS = 256
+TRAIN_ROIS = 512                       # ROI_HEADS.BATCH_SIZE_PER_IMAGE
+TOP_CANVAS = (1216, 1664)              # short side 1216 of a 375 x 500 image, padded
+TOP_IMAGE_HW = (1216, 1621)
+# the backward against the plain backward: |kernel - plain| <= BWD_RTOL x
+# max|plain| + BWD_ATOL on the f32 sums (both sum with atomics on the card,
+# in run-dependent orders); in bf16 one bf16 ulp more, for sums that round
+# to neighbouring bf16 values
+BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
 
 
 def fpn_inputs(device, dtype, seed: int, p: int = NUM_ROIS, c: int = CHANNELS,
@@ -187,17 +209,151 @@ def run(device, iters: int = 20, seed: int = 0,
     return out
 
 
+def bwd_inputs(device, dtype, seed: int, canvas: Tuple[int, int] = CANVAS,
+               image_hw: Tuple[int, int] = IMAGE_HW, p: int = TRAIN_ROIS, c: int = CHANNELS):
+    """(grad (P, PH, PW, C) in ``dtype``, level shapes, boxes, valid, level,
+    scales) of ``fpn_inputs``: the upstream gradient is unit normal."""
+    feats, boxes, valid, level, scales = fpn_inputs(device, dtype, seed, p=p, c=c,
+                                                    canvas=canvas, image_hw=image_hw)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    grad = torch.randn((p, 7, 7, c), generator=gen, device=device).to(dtype)
+    return grad, [tuple(f.shape[:2]) for f in feats], boxes, valid, level, scales
+
+
+def bwd_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each value of ``t`` (0 at 0)."""
+    e = torch.frexp(t.float()).exponent
+    return torch.where(t == 0, torch.zeros_like(t, dtype=torch.float32),
+                       torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8))
+
+
+def check_bwd(grad, shapes, boxes, valid, level, scales, **kw) -> Tuple[float, float]:
+    """The backward kernel against the plain backward on the same inputs:
+    raises unless every level's gradient is within BWD_RTOL x max|plain| +
+    BWD_ATOL of the plain one's f32 sums (bf16: of them rounded to bf16, one
+    bf16 ulp more). Returns (max |difference|, the tolerance)."""
+    got = bwd_kernel.roi_align_bwd_cuda(grad, shapes, boxes, valid, level, scales, **kw)
+    want = roi_align_levels_backward_reference(grad.permute(0, 3, 1, 2), shapes, boxes, valid,
+                                               level, scales, dtype=torch.float32, **kw)
+    tol = BWD_RTOL * max(float(w.abs().max()) for w in want) + BWD_ATOL
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != grad.dtype or tuple(g.shape) != (*shapes[i], grad.shape[-1]):
+            raise AssertionError(f"level {i}: gradient {g.dtype} {tuple(g.shape)}")
+        w = w.to(g.dtype)
+        diff = (g.float() - w.float()).abs()
+        limit = tol + (bwd_ulp(torch.maximum(g.float().abs(), w.float().abs()))
+                       if g.dtype == torch.bfloat16 else 0.0)
+        bad = ~(diff <= limit)
+        if bad.any():
+            raise AssertionError(f"ROIAlign backward level {i}: {int(bad.sum())} of {g.numel()} "
+                                 f"elements beyond the tolerance (max |d| "
+                                 f"{float(diff.max()):.3e}, tolerance {tol:.3e})")
+        err = max(err, float(diff.max()))
+    return err, tol
+
+
+def bwd_bounds(grad, shapes, boxes, valid, level, scales, **kw) -> dict:
+    """The backward's least time on these inputs, by bytes and by
+    operations, and which binds; with the sample count."""
+    g = kernel.roi_geometry(shapes, boxes, valid, level, scales, **kw)
+    p, ph, pw, c = grad.shape
+    samples = int((g["grid_h"].long() * g["grid_w"].long() * valid).sum()) * ph * pw
+    bytes_ms = bound_ms(bwd_kernel.traffic_bytes(shapes, c, p, grad.element_size(), (ph, pw)))
+    ops_ms = ops_bound_ms(samples * c * bwd_kernel.OPS_PER_SAMPLE)
+    return {"samples": samples, "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
+def index_add_bwd_ms(grad, shapes, boxes, valid, level, scales, iters: int, **kw) -> float:
+    """The library call: one ``index_add_`` of the backward's contributions
+    (the rows and terms of the valid ROIs' samples, made beforehand) into a
+    zeroed f32 map of every level."""
+    c = grad.shape[-1]
+    count, samples = _sample_geometry(shapes, boxes, valid, level, scales,
+                                      kw.get("output_size", (7, 7)),
+                                      kw.get("sampling_ratio", 0), kw.get("aligned", True),
+                                      kw.get("sample_cap", 8))
+    gc = grad.float() / count[:, None, None, None]
+    rows, terms = [], []
+    for idxs, wts, ok in samples:
+        keep = (valid & (ok > 0))[:, None, None].expand(wts[0].shape)
+        for ii, wt in zip(idxs, wts):
+            rows.append(ii[keep])
+            terms.append(gc[keep] * wt[keep][:, None])
+    rows, terms = torch.cat(rows), torch.cat(terms)
+    cells = sum(h * w for h, w in shapes)
+    return cuda_ms(lambda: torch.zeros((cells, c), device=grad.device).index_add_(0, rows, terms),
+                   iters)
+
+
+def bwd_adversarial_cases(device, dtype, seed: int = 0) -> Dict[str, tuple]:
+    """The forward's adversarial cases as backward inputs: name ->
+    ((grad, shapes, boxes, valid, level, scales), keywords)."""
+    out = {}
+    for name, ((feats, boxes, valid, level, scales), kw) in adversarial_cases(
+            device, dtype, seed).items():
+        gen = torch.Generator(device=device).manual_seed(seed)
+        grad = torch.randn((boxes.shape[0], 7, 7, feats[0].shape[-1]), generator=gen,
+                           device=device).to(dtype)
+        out[name] = ((grad, [tuple(f.shape[:2]) for f in feats], boxes, valid, level, scales),
+                     kw)
+    return out
+
+
+def run_bwd(device, iters: int = 20, seed: int = 0) -> Dict[str, dict]:
+    """Check and time the backward at both canvases and dtypes; returns
+    {"<canvas> <dtype>": {ms, device_ms, plain_ms, library_ms, max_abs_err,
+    tolerance, bound_ms, bound_by, ...}}."""
+    out = {}
+    for canvas, image_hw in ((CANVAS, IMAGE_HW), (TOP_CANVAS, TOP_IMAGE_HW)):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = bwd_inputs(device, dtype, seed, canvas, image_hw)
+            err, tol = check_bwd(*args)
+            ms = cuda_ms(lambda: bwd_kernel.roi_align_bwd_cuda(*args), iters)
+            dev_ms = device_ms(lambda: bwd_kernel.roi_align_bwd_cuda(*args), iters)
+            grad = args[0]
+            plain_ms = cuda_ms(lambda: roi_align_levels_backward_reference(
+                grad.permute(0, 3, 1, 2), *args[1:]), 3)
+            lib_ms = index_add_bwd_ms(*args, iters=iters)
+            per_level = torch.bincount(args[4][args[3]].long(), minlength=len(STRIDES)).tolist()
+            out[f"{canvas[0]}x{canvas[1]} {str(dtype)[6:]}"] = {
+                "max_abs_err": err, "tolerance": tol, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "rois_per_level": per_level,
+                **bwd_bounds(*args)}
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--baseline", action="append", default=[],
                     help="LABEL=PATH: another source of the kernel, timed in turns")
+    ap.add_argument("--kernel", choices=("fwd", "bwd"), default="fwd")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device; torch.cuda.is_available() is False")
     card = card_line()
     print(card, flush=True)
+    if args.kernel == "bwd":
+        res = run_bwd(torch.device("cuda", 0), args.iters, args.seed)
+        for name, r in res.items():
+            print(f"[roi_align_bwd] {name} x {CHANNELS}, P={TRAIN_ROIS} (per level "
+                  f"{r['rois_per_level']}, {r['samples']} samples): max |d| "
+                  f"{r['max_abs_err']:.3e} within {r['tolerance']:.3e} of the plain backward; "
+                  f"kernel {r['ms']:.4f} ms as called, {r['device_ms']:.4f} ms device; bound "
+                  f"{r['bound_ms']:.4f} ms by {r['bound_by']} (bytes {r['bytes_bound_ms']:.4f}, "
+                  f"operations {r['ops_bound_ms']:.4f}); plain {r['plain_ms']:.3f} ms; "
+                  f"index_add_ {r['library_ms']:.3f} ms | {card}", flush=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            for name, (a, kw) in bwd_adversarial_cases(torch.device("cuda", 0), dtype,
+                                                       args.seed).items():
+                err, tol = check_bwd(*a, **kw)
+                print(f"[roi_align_bwd] {str(dtype)[6:]} {name}: max |d| {err:.3e} within "
+                      f"{tol:.3e}", flush=True)
+        return res
     res = run(torch.device("cuda", 0), args.iters, args.seed, args.baseline)
     for dtype, r in res.items():
         print(f"[roi_align] {dtype} p2-p5 of {CANVAS} x {CHANNELS}, P={NUM_ROIS} (per level "

@@ -1,18 +1,31 @@
-"""Stage-2/3 evaluation CLI (pseudo-FSOD baseline and Unbiased-Teacher SSOD).
+"""Stage-2/3 training and evaluation CLI (pseudo-FSOD baseline and
+Unbiased-Teacher SSOD).
 
 Counterpart of ``tools/train_net_unbias.py`` (the reference's unbias
-train_net.py) with ``--eval-only``: the checkpoint named by
-``last_checkpoint`` (else ``model_final``) is loaded, its teacher's weights
-when SEMISUPNET.EVAL_TEACHER is set and the file holds a teacher, else the
-model's, and each of DATASETS.TEST runs through the stage-1 test mapper
-(``build_stage1_test_loader``), ``GeneralizedRCNN.predict`` and the VOC
-evaluator. With WSODEVAL.SAVE_DETECTION_RESULT the evaluator also writes
-its detection-result JSON (to WSODEVAL.SAVE_PATH, else
-OUTPUT_DIR/detection_results/frcnn_{dataset}.json). Training raises: it is
-the next slice of the port.
+train_net.py):
+  - training: the trainer by SEMISUPNET.Trainer ("ubteacher":
+    ``UBTeacherTrainer`` on the two-crop loader's batches; else
+    ``BaselineTrainer`` on its labeled weak stream), the LR schedule of
+    ``solver/build.py`` stepped with SGD, and the hooks IterationTimer,
+    LRSchedulerHook, CheckpointHook (PeriodicCheckpointer every
+    SOLVER.CHECKPOINT_PERIOD steps and at the end), EvalHook (``do_test`` on
+    the teacher when SEMISUPNET.EVAL_TEACHER is set and the trainer has one,
+    else on the model) and PeriodicWriter; ``--resume`` continues from
+    ``last_checkpoint``. As in the JAX CLI, MODEL.WEIGHTS is not read:
+    training starts from the seeded initializer (``engine/synthetic.py``,
+    SEED). Past SEMISUPNET.BURN_UP_STEP the ubteacher trainer raises: the
+    semi-supervised step is the next slice of the port;
+  - ``--eval-only``: the checkpoint named by ``last_checkpoint`` (else
+    ``model_final``) is loaded, its teacher's weights when
+    SEMISUPNET.EVAL_TEACHER is set and the file holds a teacher, else the
+    model's, and each of DATASETS.TEST runs through the stage-1 test mapper
+    (``build_stage1_test_loader``), ``GeneralizedRCNN.predict`` and the VOC
+    evaluator. With WSODEVAL.SAVE_DETECTION_RESULT the evaluator also writes
+    its detection-result JSON (to WSODEVAL.SAVE_PATH, else
+    OUTPUT_DIR/detection_results/frcnn_{dataset}.json).
 
     python -m sos_wsod_torch.tools.train_net_unbias \\
-        --config-file configs/stage23/voc_baseline.yaml --eval-only [KEY VALUE ...]
+        --config-file configs/stage23/voc_baseline.yaml [--resume] [--eval-only] [KEY VALUE ...]
 """
 from __future__ import annotations
 
@@ -26,12 +39,17 @@ from ..config import get_cfg
 from ..data.build import build_stage1_test_loader
 from ..data.catalog import DatasetCatalog, MetadataCatalog
 from ..data.datasets.voc import register_all_voc
-from ..engine.checkpoint import Checkpointer
+from ..data.mapper_twocrop import build_semisup_loader_from_cfg
+from ..engine.checkpoint import Checkpointer, PeriodicCheckpointer
 from ..engine.defaults import default_argument_parser, default_setup, run_stage1_inference
+from ..engine.hooks import CheckpointHook, EvalHook, IterationTimer, LRSchedulerHook, PeriodicWriter
+from ..engine.synthetic import build_synthetic_frcnn
+from ..engine.ubteacher import BaselineTrainer, UBTeacherTrainer
 from ..engine.weights import load_weights
 from ..evaluation.testing import verify_results
 from ..evaluation.voc_eval import PascalVOCDetectionEvaluator, annotations_from_dataset_dicts
 from ..models.meta.rcnn import GeneralizedRCNN
+from ..utils.events import CommonMetricPrinter, JSONWriter
 
 logger = logging.getLogger(__name__)
 
@@ -69,24 +87,42 @@ def do_test(cfg, model) -> OrderedDict:
 
 
 def main(args):
-    """With ``--eval-only``, evaluate the checkpoint named by
-    ``last_checkpoint`` (else ``model_final``); returns the results by
-    dataset."""
+    """Train (returns the trainer) or, with ``--eval-only``, evaluate the
+    checkpoint named by ``last_checkpoint``, else ``model_final`` (returns
+    the results by dataset)."""
     cfg = setup(args)
     register_all_voc()
-    if not args.eval_only:
-        raise NotImplementedError(
-            "train_net_unbias: only --eval-only is ported; stage-2/3 training (burn-in, "
-            "Unbiased Teacher) is the next slice (ROADMAP Queue 1 item 4)")
     device = torch.device(cfg.MODEL.DEVICE)
     checkpointer = Checkpointer(cfg.OUTPUT_DIR)
-    name = checkpointer.get_last_checkpoint() or "model_final"
-    state = checkpointer.load(name, map_location=device)
-    role = "teacher" if cfg.SEMISUPNET.EVAL_TEACHER and "teacher" in state else "model"
-    model = load_weights(GeneralizedRCNN.from_cfg(cfg, device="meta"), state[role], device)
-    logger.info("Loaded the %s of %s (iteration %s)", role, checkpointer.path(name),
-                state.get("iter"))
-    return do_test(cfg, model)
+
+    if args.eval_only:
+        name = checkpointer.get_last_checkpoint() or "model_final"
+        state = checkpointer.load(name, map_location=device)
+        role = "teacher" if cfg.SEMISUPNET.EVAL_TEACHER and "teacher" in state else "model"
+        model = load_weights(GeneralizedRCNN.from_cfg(cfg, device="meta"), state[role], device)
+        logger.info("Loaded the %s of %s (iteration %s)", role, checkpointer.path(name),
+                    state.get("iter"))
+        return do_test(cfg, model)
+
+    model = build_synthetic_frcnn(cfg, device, max(cfg.SEED, 0))
+    data_iter = build_semisup_loader_from_cfg(cfg)
+    if cfg.SEMISUPNET.Trainer == "ubteacher":
+        trainer = UBTeacherTrainer(cfg, model, data_iter)
+    else:
+        trainer = BaselineTrainer(cfg, model, (batch["label_k"] for batch in data_iter))
+    writers = [CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
+               JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json"))]
+    trainer.register_hooks([
+        IterationTimer(),
+        LRSchedulerHook(),
+        CheckpointHook(PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD,
+                                            cfg.SOLVER.MAX_ITER)),
+        EvalHook(cfg.TEST.EVAL_PERIOD, lambda: do_test(cfg, trainer.eval_model())),
+        PeriodicWriter(writers, period=20),
+    ])
+    start_iter = checkpointer.resume_or_load(trainer, resume=args.resume)
+    trainer.train(start_iter, cfg.SOLVER.MAX_ITER)
+    return trainer
 
 
 if __name__ == "__main__":

@@ -227,10 +227,22 @@ def test_inf_nan_image_yields_no_detections(models, fill):
 
 
 def test_training_branches_raise_and_alias(models):
-    pm = models[3]
-    for branch in ("supervised", "val_loss"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-            pm({}, branch=branch)
+    """"supervised" and "val_loss" run the losses on a batch (the latter
+    without the gt appended to the proposals); their parity with the JAX
+    losses is tests/test_torch_frcnn_train.py's. An unknown branch raises."""
+    pm, batch = models[3], models[4]
+    rng = np.random.default_rng(3)
+    gt = np.zeros((1, 4, 4), np.float32)
+    gt[0, :2] = [[4, 6, 30, 40], [20, 10, 60, 50]]
+    train = {"image": torch.from_numpy(batch["image"][None].copy()),
+             "image_hw": torch.tensor([[60.0, 64.0]]), "gt_boxes": torch.from_numpy(gt),
+             "gt_classes": torch.from_numpy(rng.integers(0, 20, (1, 4)).astype(np.int32)),
+             "gt_valid": torch.tensor([[True, True, False, False]])}
+    keys = {"loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc"}
+    with torch.no_grad():
+        for branch in ("supervised", "val_loss"):
+            losses = pm(train, branch=branch, generator=torch.Generator().manual_seed(0))
+            assert set(losses) == keys and all(torch.isfinite(v) for v in losses.values())
     with pytest.raises(ValueError, match="Unknown branch"):
         pm({}, branch="teacher")
     assert TwoStagePseudoLabGeneralizedRCNN is GeneralizedRCNN

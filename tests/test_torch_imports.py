@@ -103,6 +103,9 @@ with tempfile.TemporaryDirectory() as tmp:
         ["--config-file", s2, "--eval-only", *s2_opts]))
     dets = json.load(open("out2/detection_results/frcnn_voc_2007_test.json"))
     assert {d["image_id"] for d in dets} <= {2}, dets[:3]
+
+    assert {"sos_wsod_torch.engine.ubteacher", "sos_wsod_torch.data.mapper_twocrop",
+            "sos_wsod_torch.core.sampling", "sos_wsod_torch.kernels.roi_align_bwd"} <= set(names)
     os.chdir(cwd)
 
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu")

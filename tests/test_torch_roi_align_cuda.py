@@ -120,8 +120,16 @@ def test_library_reports_the_plan(device):
                    "slices_per_block": kernel.SLICES_PER_BLOCK, "vec_bytes": kernel.VEC_BYTES}
 
 
-def test_requires_grad_raises(device):
+def test_requires_grad_runs_the_backward_kernel(device):
+    """A CUDA feature map that requires grad goes through the forward kernel
+    and then the backward kernel (tests/test_torch_roi_align_bwd_cuda.py
+    holds the backward against the plain one)."""
+    from sos_wsod_torch.kernels import roi_align_bwd as bwd_kernel
+
     feat = torch.randn(8, 8, 16, device=device, requires_grad=True)
     boxes = torch.tensor([[0.0, 0.0, 10.0, 10.0]], device=device)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        roi_align(feat, boxes, torch.ones(1, dtype=torch.bool, device=device), spatial_scale=0.5)
+    fwd_n, bwd_n = kernel.launches, bwd_kernel.launches
+    out = roi_align(feat, boxes, torch.ones(1, dtype=torch.bool, device=device), spatial_scale=0.5)
+    (g,) = torch.autograd.grad(out.sum(), feat)
+    assert (kernel.launches, bwd_kernel.launches) == (fwd_n + 1, bwd_n + 1)
+    assert g.shape == feat.shape and torch.isfinite(g).all() and g.abs().sum() > 0

@@ -1,9 +1,12 @@
-"""The port's stage-2/3 entry point (sos_wsod_torch/tools/train_net_unbias.py,
---eval-only) against the JAX CLI's do_test (tools/train_net_unbias.py) on a
+"""The port's stage-2/3 entry point (sos_wsod_torch/tools/train_net_unbias.py):
+--eval-only against the JAX CLI's do_test (tools/train_net_unbias.py) on a
 synthetic VOC tree (engine/synthetic.py:write_synthetic_voc, one image
-shape), with the same weights; and the detectron2 weight mapping
+shape), with the same weights; the detectron2 weight mapping
 (engine/weights.py:state_dict_from_d2_frcnn) against the JAX package's
-frcnn_param_tree.
+frcnn_param_tree; and training through the CLI on the CPU (two steps, a
+checkpoint with the model and the teacher, --resume, --eval-only on it),
+whose step is held against the JAX package's in
+tests/test_torch_frcnn_train.py.
 
 Both CLIs run the same random R50-FPN weights (engine/synthetic.py:
 random_d2_frcnn_state_dict, at tiny widths: ResNet depth 14, FPN 32
@@ -30,6 +33,8 @@ from sos_wsod_torch.engine.defaults import default_argument_parser
 from sos_wsod_torch.engine.synthetic import (
     load_config,
     random_d2_frcnn_state_dict,
+    write_dataseed,
+    write_pseudo_labels,
     write_stage2_checkpoint,
     write_synthetic_voc,
 )
@@ -44,12 +49,29 @@ SSOD = str(ROOT / "configs" / "stage23" / "voc_ssod.yaml")
 TINY = ["TPU.COMPUTE_DTYPE", "float32", "MODEL.RESNETS.DEPTH", "14", "MODEL.FPN.OUT_CHANNELS",
         "32", "MODEL.ROI_BOX_HEAD.FC_DIM", "64", "MODEL.RPN.PRE_NMS_TOPK_TEST", "64",
         "MODEL.RPN.POST_NMS_TOPK_TEST", "32", "INPUT.MIN_SIZE_TEST", "48"]
+# training at the same widths: 2 + 2 images a step on 40-48 px short sides
+TRAIN = TINY + ["MODEL.DEVICE", "cpu", "MODEL.RPN.PRE_NMS_TOPK_TRAIN", "64",
+                "MODEL.RPN.POST_NMS_TOPK_TRAIN", "32", "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE",
+                "32", "INPUT.MIN_SIZE_TRAIN", "(40, 48)", "INPUT.MAX_SIZE_TRAIN", "80",
+                "SOLVER.IMG_PER_BATCH_LABEL", "2", "SOLVER.IMG_PER_BATCH_UNLABEL", "2",
+                "TPU.PGT_CAPACITY", "8", "SOLVER.CHECKPOINT_PERIOD", "1"]
 
 
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     root = tmp_path_factory.mktemp("voc2")
     write_synthetic_voc(str(root), (("test", 3),), (60, 80), 30, seed=0)
+    return root
+
+
+@pytest.fixture(scope="module")
+def train_tree(tmp_path_factory):
+    """voc_baseline's DATASETS.TRAIN (the _wsl sets of train and val, with
+    their pseudo labels), its dataseed, and a test split."""
+    root = tmp_path_factory.mktemp("voc2_train")
+    write_synthetic_voc(str(root), (("train", 3), ("val", 2), ("test", 2)), (60, 80), 30, seed=1)
+    write_pseudo_labels(str(root))
+    write_dataseed(str(root), load_config(BASELINE), 5)
     return root
 
 
@@ -148,8 +170,60 @@ def test_eval_only_picks_the_teacher_and_writes_json(tree, monkeypatch):
     assert set(state) == {"model", "teacher", "iter"}
 
 
-def test_training_is_refused(tree, monkeypatch):
-    monkeypatch.chdir(tree)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        cli.main(default_argument_parser().parse_args(
-            ["--config-file", BASELINE, *TINY, "MODEL.DEVICE", "cpu", "OUTPUT_DIR", "refused"]))
+def _train(*flags_and_opts):
+    return cli.main(default_argument_parser().parse_args(
+        ["--config-file", BASELINE, *flags_and_opts]))
+
+
+def test_training_is_refused(train_tree, monkeypatch):
+    """What stage-2/3 training does not take yet: more than one GPU
+    (data parallelism), and the ubteacher trainer past its burn-in (the
+    semi-supervised step, the next slice)."""
+    monkeypatch.chdir(train_tree)
+    with pytest.raises(NotImplementedError, match="data parallelism"):
+        _train("--num-gpus", "2", *TRAIN, "OUTPUT_DIR", "refused")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4.3"):
+        _train(*TRAIN, "OUTPUT_DIR", "refused", "SEMISUPNET.BURN_UP_STEP", "1",
+               "SOLVER.MAX_ITER", "2")
+
+
+def test_cli_trains_resumes_and_evaluates(train_tree, monkeypatch):
+    """Two burn-in steps through the CLI: finite losses, a checkpoint each
+    step holding the model, its teacher (the weights it started from),
+    optimizer, schedule, generator and iteration, and an eval at the end;
+    --resume continues to step 3 from model_final; --eval-only loads that
+    checkpoint, strictly."""
+    monkeypatch.chdir(train_tree)
+    trainer = _train(*TRAIN, "SOLVER.MAX_ITER", "2", "OUTPUT_DIR", "out")
+    hist = trainer.storage.histories()
+    for k in ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "total_loss"):
+        assert len(hist[k].values()) == 2 and np.isfinite(hist[k].latest), k
+    assert "voc_2007_test/bbox/AP50" in hist
+    out = train_tree / "out"
+    assert {"model_0000000.pth", "model_0000001.pth", "model_final.pth", "last_checkpoint",
+            "metrics.json"} <= {p.name for p in out.iterdir()}
+    state = Checkpointer(str(out)).load("model_final")
+    assert set(state) == {"model", "teacher", "optimizer", "scheduler", "generator", "iter"}
+    assert state["iter"] == 2
+    cfg = _tiny_cfg()
+    start = GeneralizedRCNN.from_cfg(cfg, device="meta").state_dict()
+    assert set(state["teacher"]) == set(state["model"]) == set(start)
+    init = state_dict_from_d2_frcnn(random_d2_frcnn_state_dict(cfg, 0))
+    assert all(torch.equal(state["teacher"][k], init[k]) for k in init)
+    assert not torch.equal(state["model"]["roi_heads.box_head.fc1.weight"],
+                           init["roi_heads.box_head.fc1.weight"])
+
+    resumed = _train("--resume", *TRAIN, "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", "out")
+    assert (resumed.start_iter, resumed.iter) == (2, 3)
+    assert Checkpointer(str(out)).load("model_final")["iter"] == 3
+
+    records = _Records()
+    logging.getLogger(cli.__name__).addHandler(records)
+    try:
+        res = _train("--eval-only", *TRAIN, "OUTPUT_DIR", "out")
+    finally:
+        logging.getLogger(cli.__name__).removeHandler(records)
+    loaded = [m for m in records.messages if m.startswith("Loaded")]
+    assert len(loaded) == 1 and loaded[0].startswith("Loaded the model of")
+    assert loaded[0].endswith("model_final.pth (iteration 3)")
+    assert np.isfinite(res["voc_2007_test"]["bbox"]["AP50"])
