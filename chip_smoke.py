@@ -39,13 +39,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
      with the ROIs of each branch (staged in shared memory or direct);
   4d. ROIAlign backward kernel vs plain: the multi-level ROIAlign backward
      (the gradient of each level's features) against the plain backward
-     run on the card, at the training step's shapes (512 sampled ROIs on
+     run on the CPU, at the training step's shapes (512 sampled ROIs on
      p2-p5 of the 704 x 960 canvas and of the largest training canvas, 1216
-     x 1664) in bf16 and f32, and on the forward's adversarial cases: within
-     BWD_RTOL x max|plain| + BWD_ATOL of the plain f32 sums (bf16: one bf16
-     ulp more), since both sum with atomics in run-dependent orders; times
-     as called and on the device beside the bound, the plain backward's and
-     index_add_'s alone for the same contributions;
+     x 1664) in bf16 and f32, and on the forward's adversarial cases:
+     bit-identical, and the same bits from two launches; times as called
+     and on the device beside the bound, the bin-tile pairs, the plain
+     backward's time on the card and index_add_'s alone for the same terms;
   5. inference slice: the full-width VGG16 OICR+ model of
      configs/stage1/voc07_oicr_plus.yaml with random weights made from a
      seed, 4 synthetic VOC-sized images through run_stage1_inference in bf16
@@ -396,34 +395,32 @@ def phase_roi_align_vs_plain(device) -> dict:
 
 def phase_roi_align_bwd_vs_plain(device) -> dict:
     """The ROIAlign backward kernel at the training shapes, both canvases and
-    dtypes, then the adversarial cases: each within its stated tolerance of
-    the plain backward on the card; times beside the bound."""
+    dtypes, then the adversarial cases: each bit-identical to the plain
+    backward run on the CPU and across two launches, within
+    ADVERSARIAL_LIMIT_S a case; times beside the bound."""
     from sos_wsod_torch.tools import bench_roi_align as bench
 
     res = bench.run_bwd(device, iters=20, seed=SEED)
     for name, r in res.items():
-        ulp = " + 1 bf16 ulp" if "bfloat16" in name else ""
         log("kernel", f"roi_align_bwd {name} x {bench.CHANNELS}, P={bench.TRAIN_ROIS} (per level "
-                      f"{r['rois_per_level']}, {r['samples']} samples): max |d| "
-                      f"{r['max_abs_err']:.3e}, tolerance {r['tolerance']:.3e}{ulp} "
-                      f"({bench.BWD_RTOL:g} x max|plain| + {bench.BWD_ATOL:g}); kernel "
-                      f"{r['ms']:.4f} ms as called, {r['device_ms']:.4f} ms device, bound "
-                      f"{r['bound_ms']:.4f} ms by {r['bound_by']} "
-                      f"({100 * r['bound_ms'] / r['ms']:.1f}% of the call; bytes "
+                      f"{r['rois_per_level']}, {r['samples']} samples, {r['terms']} terms, "
+                      f"{r['tile_pairs']} bin-tile pairs): bit-identical to the plain backward "
+                      f"on the CPU and across two launches; kernel {r['ms']:.4f} ms as called, "
+                      f"{r['device_ms']:.4f} ms device, bound {r['bound_ms']:.4f} ms by "
+                      f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of the call; bytes "
                       f"{r['bytes_bound_ms']:.4f}, operations {r['ops_bound_ms']:.4f}), plain "
                       f"{r['plain_ms']:.3f} ms, index_add_ {r['library_ms']:.3f} ms")
     for dtype in (torch.bfloat16, torch.float32):
         for name, (args, kw) in bench.bwd_adversarial_cases(device, dtype, SEED).items():
             t0 = time.perf_counter()
-            err, tol = bench.check_bwd(*args, **kw)
+            bench.check_bwd(*args, **kw)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             if secs > ADVERSARIAL_LIMIT_S:
                 raise AssertionError(f"roi_align_bwd {name}: {secs:.1f} s, over "
                                      f"{ADVERSARIAL_LIMIT_S} s")
-            log("kernel", f"roi_align_bwd {str(dtype)[6:]} {name}: max |d| {err:.3e} within "
-                          f"{tol:.3e}{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''} in "
-                          f"{secs:.2f} s")
+            log("kernel", f"roi_align_bwd {str(dtype)[6:]} {name}: bit-identical to the plain "
+                          f"backward on the CPU and across two launches in {secs:.2f} s")
     r = res[f"{bench.CANVAS[0]}x{bench.CANVAS[1]} bfloat16"]
     return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

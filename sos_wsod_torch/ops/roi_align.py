@@ -20,10 +20,12 @@ two tensors, as the kernel's are.
 The gradient with respect to the features comes from an autograd Function
 (``_RoIAlignLevels``): on the card the backward kernel
 (``kernels/roi_align_bwd.py``), on the CPU the plain backward,
-``roi_align_levels_backward_reference``. Both put (g / count) x w_k onto
-each sample's four corners, as XLA's autodiff of the JAX function does, and
-sum in f32; the kernel sums with atomics, in a run-dependent order. The
-boxes get no gradient: they come from detached proposals or from data.
+``roi_align_levels_backward_reference``. The plain backward fixes the order
+and arithmetic that the kernel keeps: for each bin, the samples' factors
+summed by row and by column, one term (g / count x Y) x X a cell, each
+cell's terms added in f32 in (p, ph, pw) order; so the kernel's gradient is
+the plain one's bit for bit, from run to run. The boxes get no gradient:
+they come from detached proposals or from data.
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ import torch
 
 from ..kernels.roi_align import roi_align_fwd_cuda
 from ..kernels.roi_align_bwd import roi_align_bwd_cuda
+
+TERM_CHUNK = 1 << 24     # elements of the plain backward's terms held at once
 
 
 def _bilinear_weights(y, x, h, w):
@@ -57,16 +61,16 @@ def _bilinear_weights(y, x, h, w):
     return idx, [torch.where(oob, zero, wt) for wt in wts]
 
 
-def _sample_geometry(shapes: Sequence[Tuple[int, int]], boxes: torch.Tensor,
-                     valid: torch.Tensor, level: torch.Tensor, spatial_scales: Sequence[float],
-                     output_size: Tuple[int, int], sampling_ratio: int, aligned: bool,
-                     sample_cap: int):
-    """The plain version's per-ROI geometry: each ROI's sample count (P,)
-    f32 and, for each sample (iy, ix) of the cap x cap grid in the JAX loop
-    order (iy outer, ix inner), the four corners' rows of the flat map (all
-    levels' (H_l * W_l) cells after one another), as (P, PH, PW) int64, their
-    weights (P, PH, PW) f32 and ``ok`` (P,) f32, 1 for the samples inside
-    the ROI's grid. Returns (count, iterator)."""
+def _roi_geometry(shapes: Sequence[Tuple[int, int]], boxes: torch.Tensor,
+                  valid: torch.Tensor, level: torch.Tensor, spatial_scales: Sequence[float],
+                  output_size: Tuple[int, int], sampling_ratio: int, aligned: bool,
+                  sample_cap: int) -> dict:
+    """The plain version's per-ROI quantities: the level's map size ``h``,
+    ``w`` (int32) and first row ``base`` of the flat map (all levels'
+    (H_l * W_l) cells after one another, int64), the scaled box (P, 4),
+    bin sizes, the grid ``grid_h``, ``grid_w`` (int32, fixed by
+    sampling_ratio or ceil(bin) capped at the cap), the sample count (f32)
+    and the cap."""
     dev = boxes.device
     ph_out, pw_out = output_size
     cap = sampling_ratio if sampling_ratio > 0 else sample_cap
@@ -77,7 +81,6 @@ def _sample_geometry(shapes: Sequence[Tuple[int, int]], boxes: torch.Tensor,
     h = torch.tensor([s[0] for s in shapes], dtype=torch.int32, device=dev)[lvl]
     w = torch.tensor([s[1] for s in shapes], dtype=torch.int32, device=dev)[lvl]
     scale = torch.tensor(spatial_scales, dtype=torch.float32, device=dev)[lvl]
-    base = starts[lvl]
 
     boxes = torch.where(valid[:, None], boxes, torch.zeros_like(boxes)).float()
     offset = 0.5 if aligned else 0.0
@@ -99,18 +102,40 @@ def _sample_geometry(shapes: Sequence[Tuple[int, int]], boxes: torch.Tensor,
         grid_h = torch.ceil(bin_h).to(torch.int32).clamp(1, cap)
         grid_w = torch.ceil(bin_w).to(torch.int32).clamp(1, cap)
     count = torch.clamp(grid_h * grid_w, min=1).float()
+    return {"h": h, "w": w, "base": starts[lvl], "scaled": scaled, "bin_h": bin_h,
+            "bin_w": bin_w, "grid_h": grid_h, "grid_w": grid_w, "count": count, "cap": cap}
+
+
+def _sample_geometry(shapes: Sequence[Tuple[int, int]], boxes: torch.Tensor,
+                     valid: torch.Tensor, level: torch.Tensor, spatial_scales: Sequence[float],
+                     output_size: Tuple[int, int], sampling_ratio: int, aligned: bool,
+                     sample_cap: int):
+    """The plain version's per-ROI geometry: each ROI's sample count (P,)
+    f32 and, for each sample (iy, ix) of the cap x cap grid in the JAX loop
+    order (iy outer, ix inner), the four corners' rows of the flat map (all
+    levels' (H_l * W_l) cells after one another), as (P, PH, PW) int64, their
+    weights (P, PH, PW) f32 and ``ok`` (P,) f32, 1 for the samples inside
+    the ROI's grid. Returns (count, iterator)."""
+    geo = _roi_geometry(shapes, boxes, valid, level, spatial_scales, output_size,
+                        sampling_ratio, aligned, sample_cap)
+    dev = boxes.device
+    ph_out, pw_out = output_size
+    p = boxes.shape[0]
+    scaled, bin_h, bin_w = geo["scaled"], geo["bin_h"], geo["bin_w"]
+    grid_h, grid_w = geo["grid_h"], geo["grid_w"]
 
     def samples():
         ph_idx = torch.arange(ph_out, dtype=torch.float32, device=dev)
         pw_idx = torch.arange(pw_out, dtype=torch.float32, device=dev)
-        hh, ww, bb = h[:, None, None], w[:, None, None], base[:, None, None]
+        hh, ww = geo["h"][:, None, None], geo["w"][:, None, None]
+        bb = geo["base"][:, None, None]
         gh, gw = grid_h.float(), grid_w.float()
-        for iy in range(cap):
+        for iy in range(geo["cap"]):
             y_frac = torch.full_like(gh, iy + 0.5) / gh
             y = (scaled[:, 1][:, None] + ph_idx[None, :] * bin_h[:, None]
                  + y_frac[:, None] * bin_h[:, None])                      # (P, PH)
             y_ok = iy < grid_h
-            for ix in range(cap):
+            for ix in range(geo["cap"]):
                 x_frac = torch.full_like(gw, ix + 0.5) / gw
                 x = (scaled[:, 0][:, None] + pw_idx[None, :] * bin_w[:, None]
                      + x_frac[:, None] * bin_w[:, None])                  # (P, PW)
@@ -120,7 +145,7 @@ def _sample_geometry(shapes: Sequence[Tuple[int, int]], boxes: torch.Tensor,
                 idxs, wts = _bilinear_weights(yy, xx, hh, ww)
                 yield [bb + ii for ii in idxs], wts, ok
 
-    return count, samples()
+    return geo["count"], samples()
 
 
 def roi_align_levels_reference(features: Sequence[torch.Tensor], boxes: torch.Tensor,
@@ -150,6 +175,75 @@ def roi_align_levels_reference(features: Sequence[torch.Tensor], boxes: torch.Te
     return out.to(features[0].dtype).permute(0, 3, 1, 2)
 
 
+def _axis_sums(start: torch.Tensor, bin_size: torch.Tensor, grid: torch.Tensor,
+               n: torch.Tensor, bins: int, cap: int):
+    """One axis of each bin's sample grid, folded into cells: the sample
+    positions (start + b * bin) + ((i + 0.5) / grid) * bin of ROI p's bin b
+    for i < grid, each giving two entries, (lo, factor h) then (hi, factor
+    l), with the forward's clamps (factors +0 out of bounds). Returns, over
+    the 2 * cap entries of each (P, bins): ``cells`` (int64), ``first``
+    (bool: the entry is inside the grid and the first of its cell) and
+    ``sums`` (f32: at a first entry, the sum from +0 of the factors of every
+    entry of its cell, in entry order; +0 elsewhere)."""
+    dev = start.device
+    idx = torch.arange(bins, dtype=torch.float32, device=dev)
+    nn = n[:, None]
+    gf = grid.float()
+    cells, facs, oks = [], [], []
+    for i in range(cap):
+        frac = torch.full_like(gf, i + 0.5) / gf
+        v = start[:, None] + idx[None, :] * bin_size[:, None] + frac[:, None] * bin_size[:, None]
+        oob = (v < -1.0) | (v > nn.float())
+        v = v.clamp(min=0.0)
+        lo = torch.minimum(v.to(torch.int32), nn - 1)
+        hi = torch.minimum(lo + 1, nn - 1)
+        v = torch.where(lo >= nn - 1, (nn - 1).float(), v)
+        low = v - lo.float()
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        ok = (i < grid)[:, None].expand_as(lo)
+        cells += [lo, hi]
+        facs += [torch.where(oob, zero, 1.0 - low), torch.where(oob, zero, low)]
+        oks += [ok, ok]
+    cells = torch.stack(cells, -1).long()
+    facs, oks = torch.stack(facs, -1), torch.stack(oks, -1)
+    e = cells.shape[-1]
+    same = (cells[..., :, None] == cells[..., None, :]) & oks[..., :, None] & oks[..., None, :]
+    rep = same.to(torch.uint8).argmax(-2)         # each entry's first entry of its cell
+    first = oks & (rep == torch.arange(e, device=dev))
+    sums = torch.zeros_like(facs)
+    for k in range(e):
+        at = rep[..., k:k + 1]
+        add = torch.where(oks[..., k:k + 1], facs[..., k:k + 1], torch.zeros_like(facs[..., :1]))
+        sums.scatter_(-1, at, sums.gather(-1, at) + add)
+    return cells, first, sums
+
+
+def backward_terms(shapes: Sequence[Tuple[int, int]], boxes: torch.Tensor, valid: torch.Tensor,
+                   level: torch.Tensor, spatial_scales: Sequence[float], *,
+                   output_size: Tuple[int, int] = (7, 7), sampling_ratio: int = 0,
+                   aligned: bool = True, sample_cap: int = 8):
+    """The plain backward's terms, one for each cell of each bin of each
+    valid ROI, in (p, ph, pw, y, x) order: ``at`` (N, 5) int64, the indices
+    (p, ph, pw, i, j) of the bin's row entry i and column entry j
+    (``_axis_sums``); ``rows`` (N,) the cell's row of the flat map (all
+    levels' (H_l * W_l) cells after one another); ``ysum``, ``xsum`` (N,)
+    f32 the row's and the column's sums of factors; and ``count`` (P,) f32,
+    each ROI's sample count."""
+    ph_out, pw_out = output_size
+    geo = _roi_geometry(shapes, boxes, valid, level, spatial_scales, output_size,
+                        sampling_ratio, aligned, sample_cap)
+    ycell, yfirst, ysum = _axis_sums(geo["scaled"][:, 1], geo["bin_h"], geo["grid_h"], geo["h"],
+                                     ph_out, geo["cap"])
+    xcell, xfirst, xsum = _axis_sums(geo["scaled"][:, 0], geo["bin_w"], geo["grid_w"], geo["w"],
+                                     pw_out, geo["cap"])
+    live = (valid[:, None, None, None, None] & yfirst[:, :, None, :, None]
+            & xfirst[:, None, :, None, :])
+    at = live.nonzero()
+    p, ph, pw, i, j = at.unbind(1)
+    rows = geo["base"][p] + ycell[p, ph, i] * geo["w"][p].long() + xcell[p, pw, j]
+    return at, rows, ysum[p, ph, i], xsum[p, pw, j], geo["count"]
+
+
 def roi_align_levels_backward_reference(grad: torch.Tensor, shapes: Sequence[Tuple[int, int]],
                                         boxes: torch.Tensor, valid: torch.Tensor,
                                         level: torch.Tensor, spatial_scales: Sequence[float], *,
@@ -160,23 +254,32 @@ def roi_align_levels_backward_reference(grad: torch.Tensor, shapes: Sequence[Tup
     """The plain backward: grad (P, C, PH, PW), the gradient of
     ``roi_align_levels_reference``'s output; shapes (H_l, W_l) of each
     level -> each level's (H_l, W_l, C) gradient in ``dtype`` (grad's by
-    default). The transpose of the forward, in the order XLA's autodiff of
-    the JAX function takes it: g masked to the valid ROIs, divided by the
-    sample count, times ``ok``, times each corner's weight, then added into
-    an f32 map with ``index_add_``, one sample and corner at a time, and
-    rounded once to ``dtype``."""
+    default).
+
+    The order and arithmetic that the backward kernel keeps: for each bin
+    of each valid ROI, gc = g / count (a true division); Y[y], the sum from
+    +0 of the factors of the bin's sample rows on row y (``_axis_sums``),
+    and X[x] over the columns; one term (gc * Y[y]) * X[x] for each cell
+    (y, x) the bin touches, each product rounded once; each cell's terms
+    added from +0 into an f32 map in ascending (p, ph, pw) order
+    (``index_add_`` on the CPU adds its rows in order), then rounded once
+    to ``dtype``. This is the transpose of the forward, the function XLA's
+    autodiff of the JAX roi_align computes, with the sample weights
+    factored by rows and columns; invalid ROIs add nothing. The terms go in
+    chunks of ``TERM_CHUNK`` elements."""
     c = grad.shape[1]
-    count, samples = _sample_geometry(shapes, boxes, valid, level, spatial_scales, output_size,
-                                      sampling_ratio, aligned, sample_cap)
+    at, rows, ysum, xsum, count = backward_terms(
+        shapes, boxes, valid, level, spatial_scales, output_size=output_size,
+        sampling_ratio=sampling_ratio, aligned=aligned, sample_cap=sample_cap)
     g = grad.permute(0, 2, 3, 1).float()
-    g = torch.where(valid[:, None, None, None], g, torch.zeros_like(g))
     gc = g / count[:, None, None, None]
     sizes = [h * w for h, w in shapes]
     total = torch.zeros((sum(sizes), c), dtype=torch.float32, device=grad.device)
-    for idxs, wts, ok in samples:
-        d_sample = gc * ok[:, None, None, None]
-        for ii, wt in zip(idxs, wts):
-            total.index_add_(0, ii.reshape(-1), (d_sample * wt[..., None]).reshape(-1, c))
+    step = max(1, TERM_CHUNK // max(c, 1))
+    for k in range(0, at.shape[0], step):
+        p, ph, pw = at[k:k + step, :3].unbind(1)
+        terms = gc[p, ph, pw] * ysum[k:k + step, None]
+        total.index_add_(0, rows[k:k + step], terms * xsum[k:k + step, None])
     total = total.to(dtype or grad.dtype)
     return [t.view(h, w, c) for t, (h, w) in zip(total.split(sizes), shapes)]
 

@@ -2,7 +2,7 @@
 against their plain versions at the FPN box head's shapes, on one GPU.
 
     python -m sos_wsod_torch.tools.bench_roi_align [--iters 20] [--seed 0]
-        [--baseline LABEL=OLD_ROI_ALIGN_FWD.cu ...] [--kernel fwd|bwd]
+        [--kernel fwd|bwd] [--baseline LABEL=OLD_SOURCE.cu ...] [--sweep]
 
 The inputs (``fpn_inputs``): p2-p5 of a 704 x 960 canvas, 256 channels
 (176x240, 88x120, 44x60, 22x30), and 1000 proposals inside the 688 x 917
@@ -27,19 +27,29 @@ held equal to the plain version too.
 ``--kernel bwd`` checks and times the backward instead (``run_bwd``): at
 the training step's shapes, 512 sampled ROIs on p2-p5 of the 704 x 960
 canvas and of the largest training canvas, 1216 x 1664, in bfloat16 and
-float32, and on the adversarial cases, each within ``BWD_RTOL``/``BWD_ATOL``
-of the plain backward run on the card (atomics sum in a run-dependent
-order). It prints the kernel's time as called and on the device beside the
-bound (g read once and every level's gradient written once, or
+float32, and on the adversarial cases, each bit-identical to the plain
+backward run on the CPU and across two launches (``check_bwd``). It prints
+the kernel's time as called and on the device beside the bound (g read once
+and every level's gradient written once, or
 ``kernels/roi_align_bwd.py:OPS_PER_SAMPLE`` f32 operations for each channel
-of each sample), the plain backward's time, and ``index_add_``'s time for
-the same contributions alone (precomputed rows and terms), the library
-call that a scatter-add would be.
+of each sample), the bin-tile pairs (each reads a bin's g row once), the
+plain backward's time on the card, and ``index_add_``'s time for the same
+terms alone (precomputed rows and values), the library call that a
+scatter-add would be. Its baselines are backward sources, timed in turns
+the same way: one with the earlier C interface of the f32 atomics (a zeroed
+f32 accumulator beside the output, e.g. ``git show
+5f1e554:sos_wsod_torch/csrc/roi_align_bwd.cu``) runs through an adapter
+here and is held within ``ATOMIC_RTOL``/``ATOMIC_ATOL`` of the plain
+backward; ``--sweep`` adds builds of the current source with other tile and
+warp constants (``BWD_SWEEP``), each held bit-identical.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
+import pathlib
+import re
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -51,7 +61,7 @@ from ..kernels import roi_align as kernel
 from ..kernels import roi_align_bwd as bwd_kernel
 from ..models.roi_heads.standard import assign_boxes_to_levels
 from ..ops.roi_align import (
-    _sample_geometry, roi_align_levels_backward_reference, roi_align_levels_reference)
+    backward_terms, roi_align_levels_backward_reference, roi_align_levels_reference)
 from .measure import bound_ms, card_line, cuda_ms, device_ms, fmt_turns, in_turns, ops_bound_ms
 
 CANVAS = (704, 960)
@@ -62,11 +72,11 @@ CHANNELS = 256
 TRAIN_ROIS = 512                       # ROI_HEADS.BATCH_SIZE_PER_IMAGE
 TOP_CANVAS = (1216, 1664)              # short side 1216 of a 375 x 500 image, padded
 TOP_IMAGE_HW = (1216, 1621)
-# the backward against the plain backward: |kernel - plain| <= BWD_RTOL x
-# max|plain| + BWD_ATOL on the f32 sums (both sum with atomics on the card,
-# in run-dependent orders); in bf16 one bf16 ulp more, for sums that round
-# to neighbouring bf16 values
-BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
+# an earlier backward that sums with f32 atomics (a --baseline) against the
+# plain backward: |kernel - plain| <= ATOMIC_RTOL x max|plain| + ATOMIC_ATOL
+# on the f32 sums (the atomics add in a run-dependent order); in bf16 one
+# bf16 ulp more, for sums that round to neighbouring bf16 values
+ATOMIC_RTOL, ATOMIC_ATOL = 1e-5, 1e-6
 
 
 def fpn_inputs(device, dtype, seed: int, p: int = NUM_ROIS, c: int = CHANNELS,
@@ -227,19 +237,50 @@ def bwd_ulp(t: torch.Tensor) -> torch.Tensor:
                        torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8))
 
 
-def check_bwd(grad, shapes, boxes, valid, level, scales, **kw) -> Tuple[float, float]:
-    """The backward kernel against the plain backward on the same inputs:
-    raises unless every level's gradient is within BWD_RTOL x max|plain| +
-    BWD_ATOL of the plain one's f32 sums (bf16: of them rounded to bf16, one
-    bf16 ulp more). Returns (max |difference|, the tolerance)."""
-    got = bwd_kernel.roi_align_bwd_cuda(grad, shapes, boxes, valid, level, scales, **kw)
-    want = roi_align_levels_backward_reference(grad.permute(0, 3, 1, 2), shapes, boxes, valid,
-                                               level, scales, dtype=torch.float32, **kw)
-    tol = BWD_RTOL * max(float(w.abs().max()) for w in want) + BWD_ATOL
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def check_bwd(grad, shapes, boxes, valid, level, scales, fn: Optional[Callable] = None,
+              **kw) -> float:
+    """The backward kernel (the wrapper's, else ``fn`` with its signature)
+    against the plain backward run on the CPU on the same inputs: raises
+    unless every level's gradient is of grad's dtype and shape, equal to
+    the plain one bit for bit, and equal bit for bit across two launches.
+    Returns the largest absolute difference (0.0)."""
+    fn = fn or bwd_kernel.roi_align_bwd_cuda
+    got = fn(grad, shapes, boxes, valid, level, scales, **kw)
+    again = fn(grad, shapes, boxes, valid, level, scales, **kw)
+    want = roi_align_levels_backward_reference(
+        grad.cpu().permute(0, 3, 1, 2), shapes, boxes.cpu(), valid.cpu(), level.cpu(), scales,
+        **kw)
     err = 0.0
-    for i, (g, w) in enumerate(zip(got, want)):
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
         if g.dtype != grad.dtype or tuple(g.shape) != (*shapes[i], grad.shape[-1]):
             raise AssertionError(f"level {i}: gradient {g.dtype} {tuple(g.shape)}")
+        if not torch.equal(bits(g), bits(a)):
+            raise AssertionError(f"ROIAlign backward level {i}: two launches differ in "
+                                 f"{int((g != a).sum())} of {g.numel()} elements")
+        g = g.cpu()
+        if not torch.equal(bits(g), bits(w)):
+            raise AssertionError(f"ROIAlign backward level {i}: differs from the plain backward "
+                                 f"in {int((bits(g) != bits(w)).sum())} of {g.numel()} "
+                                 f"elements (max |d| {float((g.float() - w.float()).abs().max()):.3e})")
+        err = max(err, float((g.float() - w.float()).abs().max()))
+    return err
+
+
+def check_bwd_close(grad, shapes, boxes, valid, level, scales, fn: Callable, **kw) -> float:
+    """An earlier build that sums with f32 atomics (``--baseline`` with the
+    earlier C interface) against the plain backward: within ATOMIC_RTOL x
+    max|plain| + ATOMIC_ATOL of the f32 sums, in bf16 one bf16 ulp more.
+    Returns the largest absolute difference."""
+    got = fn(grad, shapes, boxes, valid, level, scales, **kw)
+    want = roi_align_levels_backward_reference(grad.permute(0, 3, 1, 2), shapes, boxes, valid,
+                                               level, scales, dtype=torch.float32, **kw)
+    tol = ATOMIC_RTOL * max(float(w.abs().max()) for w in want) + ATOMIC_ATOL
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
         w = w.to(g.dtype)
         diff = (g.float() - w.float()).abs()
         limit = tol + (bwd_ulp(torch.maximum(g.float().abs(), w.float().abs()))
@@ -247,10 +288,9 @@ def check_bwd(grad, shapes, boxes, valid, level, scales, **kw) -> Tuple[float, f
         bad = ~(diff <= limit)
         if bad.any():
             raise AssertionError(f"ROIAlign backward level {i}: {int(bad.sum())} of {g.numel()} "
-                                 f"elements beyond the tolerance (max |d| "
-                                 f"{float(diff.max()):.3e}, tolerance {tol:.3e})")
+                                 f"elements beyond the atomics' tolerance {tol:.3e}")
         err = max(err, float(diff.max()))
-    return err, tol
+    return err
 
 
 def bwd_bounds(grad, shapes, boxes, valid, level, scales, **kw) -> dict:
@@ -266,23 +306,34 @@ def bwd_bounds(grad, shapes, boxes, valid, level, scales, **kw) -> dict:
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
 
 
+def tile_pairs(shapes, boxes, valid, level, scales, tile=(bwd_kernel.TILE_H, bwd_kernel.TILE_W),
+               **kw) -> Tuple[int, int]:
+    """(bin-tile pairs, terms) of the plain backward on these inputs: the
+    tiles of its level that each bin's cells meet (the bins the kernel
+    queues; each reads the bin's g row once), and its (bin, cell) terms."""
+    output_size = kw.get("output_size", (7, 7))
+    at, rows, _, _, _ = backward_terms(shapes, boxes, valid, level, scales, **kw)
+    sizes = torch.tensor([h * w for h, w in shapes])
+    starts = torch.cumsum(sizes, 0) - sizes
+    lvl = level.long().cpu()[at[:, 0].cpu()]
+    local = rows.cpu() - starts[lvl]
+    w = torch.tensor([w for _, w in shapes])[lvl]
+    tiles_x = -(-w // tile[1])
+    y, x = local // w, local % w
+    tile_id = starts[lvl] + (y // tile[0]) * tiles_x + x // tile[1]
+    bin_id = (at[:, 0].cpu() * output_size[0] + at[:, 1].cpu()) * output_size[1] + at[:, 2].cpu()
+    return int(torch.unique(bin_id * int(sizes.sum()) + tile_id).numel()), int(at.shape[0])
+
+
 def index_add_bwd_ms(grad, shapes, boxes, valid, level, scales, iters: int, **kw) -> float:
-    """The library call: one ``index_add_`` of the backward's contributions
-    (the rows and terms of the valid ROIs' samples, made beforehand) into a
-    zeroed f32 map of every level."""
+    """The library call: one ``index_add_`` of the plain backward's terms
+    (their rows and values, made beforehand) into a zeroed f32 map of every
+    level."""
     c = grad.shape[-1]
-    count, samples = _sample_geometry(shapes, boxes, valid, level, scales,
-                                      kw.get("output_size", (7, 7)),
-                                      kw.get("sampling_ratio", 0), kw.get("aligned", True),
-                                      kw.get("sample_cap", 8))
+    at, rows, ysum, xsum, count = backward_terms(shapes, boxes, valid, level, scales, **kw)
     gc = grad.float() / count[:, None, None, None]
-    rows, terms = [], []
-    for idxs, wts, ok in samples:
-        keep = (valid & (ok > 0))[:, None, None].expand(wts[0].shape)
-        for ii, wt in zip(idxs, wts):
-            rows.append(ii[keep])
-            terms.append(gc[keep] * wt[keep][:, None])
-    rows, terms = torch.cat(rows), torch.cat(terms)
+    p, ph, pw = at[:, :3].unbind(1)
+    terms = gc[p, ph, pw] * ysum[:, None] * xsum[:, None]
     cells = sum(h * w for h, w in shapes)
     return cuda_ms(lambda: torch.zeros((cells, c), device=grad.device).index_add_(0, rows, terms),
                    iters)
@@ -302,26 +353,131 @@ def bwd_adversarial_cases(device, dtype, seed: int = 0) -> Dict[str, tuple]:
     return out
 
 
-def run_bwd(device, iters: int = 20, seed: int = 0) -> Dict[str, dict]:
+# (tile rows: a warp each, tile columns, bins of g a lane has in flight)
+BWD_SWEEP = ((8, 8, 2), (8, 8, 8), (4, 8, 4), (8, 4, 4), (16, 8, 4), (4, 4, 4))
+
+
+def bwd_sweep_source(tile_h: int, tile_w: int, depth: int) -> pathlib.Path:
+    """A copy of the current backward source with other tile and prefetch
+    constants, written under build/ for a baseline build."""
+    src = (kbuild.CSRC_DIR / "roi_align_bwd.cu").read_text()
+    for name, val in (("kTileH", tile_h), ("kTileW", tile_w), ("kDepth", depth)):
+        src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {val};", src)
+        if n != 1:
+            raise RuntimeError(f"no single constant {name} in roi_align_bwd.cu")
+    out = kbuild.BUILD_DIR / "sweep" / f"roi_align_bwd_{tile_h}x{tile_w}d{depth}.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(src)
+    return out
+
+
+def _old_bwd_interface(path) -> bool:
+    """Whether a backward source has the earlier C interface, which takes a
+    zeroed f32 accumulator beside the output: 19 parameters against 18."""
+    m = re.search(r"int sos_roi_align_bwd\(([^)]*)\)", pathlib.Path(path).read_text())
+    return m is not None and m.group(1).count(",") == 18
+
+
+def _old_bwd(lib, grad, shapes, boxes, valid, level, scales, *, sampling_ratio=0,
+             aligned=True, sample_cap=8):
+    """The adapter: the earlier kernel on a zeroed f32 accumulator, cast to
+    bf16 by its second kernel."""
+    p, ph, pw, c = grad.shape
+    sizes = [h * w * c for h, w in shapes]
+    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=grad.device)
+    out = acc if grad.dtype == torch.float32 else torch.empty(sum(sizes), dtype=grad.dtype,
+                                                             device=grad.device)
+    n = len(shapes)
+    err = lib.sos_roi_align_bwd(
+        kernel.DTYPES[grad.dtype], n, (ctypes.c_int * n)(*[h for h, _ in shapes]),
+        (ctypes.c_int * n)(*[w for _, w in shapes]),
+        (ctypes.c_float * n)(*[float(x) for x in scales]), c, boxes.data_ptr(),
+        level.data_ptr(), valid.data_ptr(), p, ph, pw, sampling_ratio,
+        sampling_ratio if sampling_ratio > 0 else sample_cap, int(aligned), grad.data_ptr(),
+        acc.data_ptr(), None if out is acc else out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"baseline backward: CUDA error {err}")
+    return [t.view(h, w, c) for t, (h, w) in zip(out.split(sizes), shapes)]
+
+
+def _bind_old(path):
+    lib = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.sos_roi_align_bwd.argtypes = [ci, ci, vp, vp, vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
+                                      ci, vp, vp, vp, vp]
+    lib.sos_roi_align_bwd.restype = ci
+    return lib
+
+
+def _new_bwd(lib, grad, shapes, boxes, valid, level, scales, *, sampling_ratio=0, aligned=True,
+             sample_cap=8):
+    """A build with the current C interface, outside the wrapper's count."""
+    c = grad.shape[-1]
+    sizes = [h * w * c for h, w in shapes]
+    out = torch.empty(sum(sizes), dtype=grad.dtype, device=grad.device)
+    bwd_kernel.launch(lib, grad, shapes, boxes, valid, level, scales, out,
+                      sampling_ratio=sampling_ratio,
+                      cap=sampling_ratio if sampling_ratio > 0 else sample_cap, aligned=aligned)
+    return [t.view(h, w, c) for t, (h, w) in zip(out.split(sizes), shapes)]
+
+
+def bwd_builds(baselines: Sequence[str] = (), sweep: bool = False) -> Dict[str, tuple]:
+    """label -> (backward with the wrapper's signature, exact): each
+    LABEL=PATH baseline (an earlier source with the atomics' C interface
+    runs through the adapter and is not exact), the sweep's variants, then
+    the current source. They launch the libraries directly, so they leave
+    the wrapper's launch count alone."""
+    specs = [spec.split("=", 1) for spec in baselines]
+    if sweep:
+        specs += [(f"{th}x{tw}d{dp}", str(bwd_sweep_source(th, tw, dp)))
+                  for th, tw, dp in BWD_SWEEP]
+    specs.append(("current", None))
+    with ThreadPoolExecutor(len(specs)) as ex:   # one nvcc each, all at once
+        paths = list(ex.map(lambda sp: kbuild.build(f"roi_align_bwd_{sp[0]}" if sp[1] else
+                                                    "roi_align_bwd", sp[1]), specs))
+    out = {}
+    for (label, src), path in zip(specs, paths):
+        if src and _old_bwd_interface(src):
+            out[label] = (functools.partial(_old_bwd, _bind_old(path)), False)
+        else:
+            out[label] = (functools.partial(_new_bwd, bwd_kernel.bind(path)), True)
+    return out
+
+
+def run_bwd(device, iters: int = 20, seed: int = 0, baselines: Sequence[str] = (),
+            sweep: bool = False) -> Dict[str, dict]:
     """Check and time the backward at both canvases and dtypes; returns
     {"<canvas> <dtype>": {ms, device_ms, plain_ms, library_ms, max_abs_err,
-    tolerance, bound_ms, bound_by, ...}}."""
+    bound_ms, bound_by, tile_pairs, turns, ...}}. Every build is checked
+    first (``check_bwd``, or ``check_bwd_close`` for an earlier atomic one).
+    ``ms`` is the wrapper as a caller waits for it, ``device_ms`` the
+    current build's device time (the median of its turns); ``turns`` holds
+    every build's times in turns, "call" (``cuda_ms``) and "device"
+    (``device_ms``)."""
+    builds = bwd_builds(baselines, sweep)
     out = {}
     for canvas, image_hw in ((CANVAS, IMAGE_HW), (TOP_CANVAS, TOP_IMAGE_HW)):
         for dtype in (torch.bfloat16, torch.float32):
             args = bwd_inputs(device, dtype, seed, canvas, image_hw)
-            err, tol = check_bwd(*args)
+            err = check_bwd(*args)
+            for label, (fn, exact) in builds.items():
+                (check_bwd if exact else check_bwd_close)(*args, fn=fn)
             ms = cuda_ms(lambda: bwd_kernel.roi_align_bwd_cuda(*args), iters)
-            dev_ms = device_ms(lambda: bwd_kernel.roi_align_bwd_cuda(*args), iters)
+            fns = {label: functools.partial(fn, *args) for label, (fn, _) in builds.items()}
+            turns = {"call": in_turns(fns, iters, cuda_ms),
+                     "device": in_turns(fns, iters, device_ms)}
             grad = args[0]
             plain_ms = cuda_ms(lambda: roi_align_levels_backward_reference(
                 grad.permute(0, 3, 1, 2), *args[1:]), 3)
             lib_ms = index_add_bwd_ms(*args, iters=iters)
+            pairs, terms = tile_pairs(*args[1:])
             per_level = torch.bincount(args[4][args[3]].long(), minlength=len(STRIDES)).tolist()
             out[f"{canvas[0]}x{canvas[1]} {str(dtype)[6:]}"] = {
-                "max_abs_err": err, "tolerance": tol, "ms": ms, "device_ms": dev_ms,
+                "max_abs_err": err, "ms": ms,
+                "device_ms": float(np.median(turns["device"]["current"])),
                 "plain_ms": plain_ms, "library_ms": lib_ms, "rois_per_level": per_level,
-                **bwd_bounds(*args)}
+                "tile_pairs": pairs, "terms": terms, "turns": turns, **bwd_bounds(*args)}
     return out
 
 
@@ -332,27 +488,34 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     ap.add_argument("--baseline", action="append", default=[],
                     help="LABEL=PATH: another source of the kernel, timed in turns")
     ap.add_argument("--kernel", choices=("fwd", "bwd"), default="fwd")
+    ap.add_argument("--sweep", action="store_true",
+                    help="with --kernel bwd: also time the backward at other tile sizes and "
+                         "warps a block")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device; torch.cuda.is_available() is False")
     card = card_line()
     print(card, flush=True)
     if args.kernel == "bwd":
-        res = run_bwd(torch.device("cuda", 0), args.iters, args.seed)
+        res = run_bwd(torch.device("cuda", 0), args.iters, args.seed, args.baseline, args.sweep)
         for name, r in res.items():
             print(f"[roi_align_bwd] {name} x {CHANNELS}, P={TRAIN_ROIS} (per level "
-                  f"{r['rois_per_level']}, {r['samples']} samples): max |d| "
-                  f"{r['max_abs_err']:.3e} within {r['tolerance']:.3e} of the plain backward; "
-                  f"kernel {r['ms']:.4f} ms as called, {r['device_ms']:.4f} ms device; bound "
-                  f"{r['bound_ms']:.4f} ms by {r['bound_by']} (bytes {r['bytes_bound_ms']:.4f}, "
-                  f"operations {r['ops_bound_ms']:.4f}); plain {r['plain_ms']:.3f} ms; "
-                  f"index_add_ {r['library_ms']:.3f} ms | {card}", flush=True)
+                  f"{r['rois_per_level']}, {r['samples']} samples, {r['terms']} terms, "
+                  f"{r['tile_pairs']} bin-tile pairs): bit-identical to the plain backward on "
+                  f"the CPU and across two launches; kernel {r['ms']:.4f} ms as called, "
+                  f"{r['device_ms']:.4f} ms device; bound {r['bound_ms']:.4f} ms by "
+                  f"{r['bound_by']} ({100 * r['bound_ms'] / r['device_ms']:.1f}% of the device "
+                  f"time; bytes {r['bytes_bound_ms']:.4f}, operations {r['ops_bound_ms']:.4f}); "
+                  f"plain {r['plain_ms']:.3f} ms; index_add_ {r['library_ms']:.3f} ms | {card}",
+                  flush=True)
+            for kind, times in r["turns"].items():
+                print(f"[roi_align_bwd] {name} in turns, {kind}: {fmt_turns(times)}", flush=True)
         for dtype in (torch.bfloat16, torch.float32):
             for name, (a, kw) in bwd_adversarial_cases(torch.device("cuda", 0), dtype,
                                                        args.seed).items():
-                err, tol = check_bwd(*a, **kw)
-                print(f"[roi_align_bwd] {str(dtype)[6:]} {name}: max |d| {err:.3e} within "
-                      f"{tol:.3e}", flush=True)
+                check_bwd(*a, **kw)
+                print(f"[roi_align_bwd] {str(dtype)[6:]} {name}: bit-identical to the plain "
+                      f"backward", flush=True)
         return res
     res = run(torch.device("cuda", 0), args.iters, args.seed, args.baseline)
     for dtype, r in res.items():

@@ -1,22 +1,29 @@
-"""Does stage-1 training repeat from its seed on the card?
+"""Does training repeat from its seed on the card?
 
-    python -m sos_wsod_torch.tools.repeat_train [--steps 4] [--deterministic]
-        [--bwd-source OLD_BWD.cu]
+    python -m sos_wsod_torch.tools.repeat_train [--stage 1|2] [--steps 4]
+        [--deterministic] [--bwd-source OLD_BWD.cu]
 
-Runs the full-width training slice that ``chip_smoke.py`` drives
-(``configs/stage1/voc07_oicr_plus.yaml`` with random weights from a seed,
-``SOLVER.IMS_PER_BATCH 1``, synthetic 375x500 images with 4000 proposals
-through the real mapper and ``Stage1Trainer``) twice from the same seed in
-this process, and prints each step's ``loss_cls`` and ``total_loss`` of both
-runs, whether each pair is equal bit for bit, and whether the trained
-weights of both runs are. ``--deterministic`` runs both under
+``--stage 1`` (the default) runs the full-width training slice that
+``chip_smoke.py`` drives (``configs/stage1/voc07_oicr_plus.yaml`` with
+random weights from a seed, ``SOLVER.IMS_PER_BATCH 1``, synthetic 375x500
+images with 4000 proposals through the real mapper and ``Stage1Trainer``)
+twice from the same seed in this process. ``--stage 2`` runs the stage-2
+burn-in step that ``chip_smoke.py``'s phase 11 drives
+(``configs/stage23/voc_baseline.yaml`` at full width with random weights
+from the seed, 2 labeled and 2 unlabeled images a step as phase 11 cuts it,
+on a synthetic VOC tree with pseudo labels and the dataseed in a temporary
+directory, through the two-crop loader and ``UBTeacherTrainer``) twice the
+same way. It prints each step's losses of both runs (``loss_cls`` and
+``total_loss``; stage 2 also the box and RPN losses), whether each pair is
+equal bit for bit, and whether the trained weights of both runs are. ``--deterministic`` runs both under
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` with cuDNN's
 deterministic algorithms and ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, and lists
 the operations that warned they have no deterministic implementation: what
-is left to make a run repeat. ``--bwd-source`` runs the ROIPool backward
-built from another source (an earlier version, e.g. the f32 atomics, through
-the adapter of ``bench_roi_pool.py``) in place of the current kernel, to
-tell its share. The last line is a JSON summary.
+is left to make a run repeat. ``--bwd-source`` runs the stage's backward
+kernel (ROIPool for stage 1, ROIAlign for stage 2) built from another source
+(an earlier version, e.g. the f32 atomics, through the adapter of
+``bench_roi_pool.py`` or ``bench_roi_align.py``) in place of the current
+one, to tell its share. The last line is a JSON summary.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import argparse
 import json
 import os
 import pathlib
+import tempfile
 import warnings
 from typing import Dict, List, Optional, Sequence
 
@@ -34,6 +42,13 @@ CONFIG = ROOT / "configs" / "stage1" / "voc07_oicr_plus.yaml"
 RAW_HW, NUM_PROPOSALS, SEED = (375, 500), 4000, 0
 WATCH = ("roi_heads.dan.fc1.weight", "roi_heads.box_refinery_2.cls_score.weight",
          "backbone.plain5.conv3.weight")
+STAGE2_CONFIG = ROOT / "configs" / "stage23" / "voc_baseline.yaml"
+STAGE2_CUT = ["SOLVER.IMG_PER_BATCH_LABEL", 2, "SOLVER.IMG_PER_BATCH_UNLABEL", 2]   # phase 11's
+STAGE2_SPLITS = (("train", 8), ("val", 4), ("test", 2))
+STAGE2_LOSSES = ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "total_loss")
+STAGE2_WATCH = ("roi_heads.box_predictor.cls_score.weight", "roi_heads.box_head.fc1.weight",
+                "proposal_generator.head.conv.weight", "backbone.fpn.fpn_output2.weight",
+                "backbone.bottom_up.res5_block0.conv1.weight")
 
 
 def train_once(device, steps: int, opts: Sequence = (), raw_hw=RAW_HW,
@@ -68,18 +83,62 @@ def train_once(device, steps: int, opts: Sequence = (), raw_hw=RAW_HW,
             "weights": {n: params[n].detach().clone() for n in WATCH}}
 
 
+def train_stage2_once(device, steps: int, opts: Sequence = (), raw_hw=RAW_HW,
+                      num_proposals: int = 8) -> Dict[str, object]:
+    """One stage-2 burn-in run from the seed on a synthetic VOC tree written
+    into a temporary directory (the working directory while it trains):
+    per-step losses and the watched weights after the last step. ``opts``
+    are config overrides (a small width for a run on the CPU)."""
+    from sos_wsod_torch.data.datasets.voc import register_all_voc
+    from sos_wsod_torch.data.mapper_twocrop import build_semisup_loader_from_cfg
+    from sos_wsod_torch.engine.synthetic import (
+        build_synthetic_frcnn, load_config, write_dataseed, write_pseudo_labels,
+        write_synthetic_voc)
+    from sos_wsod_torch.engine.ubteacher import UBTeacherTrainer
+
+    cfg = load_config(str(STAGE2_CONFIG), [*STAGE2_CUT, "SOLVER.MAX_ITER", steps, *opts])
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_voc(tmp, STAGE2_SPLITS, raw_hw, num_proposals, SEED)
+        write_pseudo_labels(tmp, [split for split, _ in STAGE2_SPLITS if split != "test"])
+        write_dataseed(tmp, cfg, sum(n for split, n in STAGE2_SPLITS if split != "test"))
+        os.chdir(tmp)
+        try:
+            register_all_voc()
+            model = build_synthetic_frcnn(cfg, device, max(cfg.SEED, 0))
+            trainer = UBTeacherTrainer(cfg, model, build_semisup_loader_from_cfg(cfg))
+            trainer.train(0, steps)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+    hist = trainer.storage.histories()
+    params = dict(model.named_parameters())
+    return {**{k: [v for v, _ in hist[k].values()] for k in STAGE2_LOSSES},
+            "weights": {n: params[n].detach().clone() for n in STAGE2_WATCH}}
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--stage", type=int, choices=(1, 2), default=1)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--deterministic", action="store_true",
                     help="run both trainings with deterministic algorithms")
     ap.add_argument("--bwd-source", default=None,
-                    help="a ROIPool backward source to run in place of the current kernel")
+                    help="a backward source (ROIPool for stage 1, ROIAlign for stage 2) to run "
+                         "in place of the current kernel")
     return ap.parse_args(argv)
 
 
-def use_bwd_source(path: str) -> None:
-    """Route the autograd Function's backward to a build of ``path``."""
+def use_bwd_source(path: str, stage: int = 1) -> None:
+    """Route the stage's autograd Function's backward to a build of ``path``."""
+    if stage == 2:
+        from sos_wsod_torch.ops import roi_align as ops
+        from sos_wsod_torch.tools import bench_roi_align as bench
+
+        fn, _ = bench.bwd_builds([f"other={path}"])["other"]
+        ops.roi_align_bwd_cuda = fn
+        return
     from sos_wsod_torch.ops import roi_pool as ops
     from sos_wsod_torch.tools import bench_roi_pool as bench
 
@@ -101,27 +160,29 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     if args.bwd_source:
-        use_bwd_source(args.bwd_source)
+        use_bwd_source(args.bwd_source, args.stage)
+    once = train_once if args.stage == 1 else train_stage2_once
+    keys = ("loss_cls", "total_loss") if args.stage == 1 else STAGE2_LOSSES
     runs: List[dict] = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         for _ in range(2):
-            runs.append(train_once(device, args.steps))
+            runs.append(once(device, args.steps))
     a, b = runs
     for step in range(args.steps):
-        la, lb = a["loss_cls"][step], b["loss_cls"][step]
-        ta, tb = a["total_loss"][step], b["total_loss"][step]
-        print(f"step {step}: loss_cls {la!r} / {lb!r} {'same' if la == lb else 'DIFFER'}; "
-              f"total_loss {ta!r} / {tb!r} {'same' if ta == tb else 'DIFFER'}", flush=True)
-    same_w = {n: torch.equal(a["weights"][n], b["weights"][n]) for n in WATCH}
+        print(f"step {step}: " + "; ".join(
+            f"{k} {a[k][step]!r} / {b[k][step]!r} "
+            f"{'same' if a[k][step] == b[k][step] else 'DIFFER'}" for k in keys), flush=True)
+    same_w = {n: torch.equal(a["weights"][n], b["weights"][n]) for n in a["weights"]}
     print(f"trained weights bit-identical: {same_w}", flush=True)
     nondet = sorted({str(w.message).split(".")[0] for w in caught
                      if "does not have a deterministic implementation" in str(w.message)})
     if args.deterministic:
         print(f"operations without a deterministic implementation: {nondet or 'none'}",
               flush=True)
-    summary = {"deterministic": args.deterministic, "bwd_source": args.bwd_source,
-               "steps": args.steps,
+    summary = {"stage": args.stage, "deterministic": args.deterministic,
+               "bwd_source": args.bwd_source, "steps": args.steps,
+               "losses_equal": all(a[k] == b[k] for k in keys),
                "loss_cls_equal": a["loss_cls"] == b["loss_cls"],
                "total_loss_equal": a["total_loss"] == b["total_loss"],
                f"step{args.steps - 1}_loss_cls": [a["loss_cls"][-1], b["loss_cls"][-1]],

@@ -1,6 +1,7 @@
 """``sos_wsod_torch/tools/repeat_train.py`` on the CPU: two trainings from one
-seed at a small size repeat bit for bit here (the plain ROIPool backward adds
-in one order), and the tool refuses to measure without a card."""
+seed at a small size repeat bit for bit here, stage 1 and stage 2 (the plain
+ROIPool and ROIAlign backwards add in one order), and the tool refuses to
+measure without a card."""
 from __future__ import annotations
 
 import pytest
@@ -19,6 +20,21 @@ def test_two_cpu_trainings_repeat():
     assert a["total_loss"] == b["total_loss"]
     assert set(a["weights"]) == set(repeat_train.WATCH)
     assert all(torch.equal(a["weights"][n], b["weights"][n]) for n in repeat_train.WATCH)
+
+
+SMALL2 = ["MODEL.DEVICE", "cpu", "TPU.COMPUTE_DTYPE", "float32", "MODEL.RESNETS.DEPTH", 14,
+          "MODEL.FPN.OUT_CHANNELS", 32, "MODEL.ROI_BOX_HEAD.FC_DIM", 64,
+          "MODEL.RPN.PRE_NMS_TOPK_TRAIN", 64, "MODEL.RPN.POST_NMS_TOPK_TRAIN", 32,
+          "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 32, "INPUT.MIN_SIZE_TRAIN", (40, 48),
+          "INPUT.MAX_SIZE_TRAIN", 80, "TPU.PGT_CAPACITY", 8]
+
+
+def test_two_cpu_stage2_trainings_repeat():
+    a, b = (repeat_train.train_stage2_once("cpu", 2, SMALL2, (60, 80), 8) for _ in range(2))
+    for k in repeat_train.STAGE2_LOSSES:
+        assert len(a[k]) == 2 and a[k] == b[k], k
+    assert set(a["weights"]) == set(repeat_train.STAGE2_WATCH)
+    assert all(torch.equal(a["weights"][n], b["weights"][n]) for n in repeat_train.STAGE2_WATCH)
 
 
 def test_needs_a_card(monkeypatch):

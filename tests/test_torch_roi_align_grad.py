@@ -3,15 +3,19 @@ plain backward ``roi_align_levels_backward_reference`` and the autograd
 Function behind ``roi_align_levels``) against jax.vjp of the JAX package's
 multilevel_roi_align and roi_align, on the CPU in f32; and what the CPU can
 check of the backward kernel (csrc/roi_align_bwd.cu): its geometry is the
-forward kernel's, text for text, and its wrapper and bound.
+forward kernel's, text for text, its tables sum in the plain backward's
+order, and its wrapper and bound.
 
-Tolerances: both sides put (g / count) x w_k onto each sample's corners and
-sum the terms in f32, in different orders (XLA's scatter-add, torch's
-index_add_); XLA:CPU also contracts the sample positions into FMAs
-(tests/test_torch_roi_align.py), which moves a weight by an ulp or so. The
-gradients are held within 1e-4 relative plus 1e-5 x the largest entry. The
-autograd Function on the CPU runs the plain forward and the plain backward,
-so its gradient equals the plain backward's bit for bit.
+Tolerances: XLA puts (g / count) x w_k onto each sample's corners; the
+plain backward puts (g / count x Y) x X onto each cell of a bin, Y and X
+the sums of the bin's sample factors on the cell's row and column (the same
+function, factored); both sum in f32, in different orders (XLA's
+scatter-add, torch's index_add_); XLA:CPU also contracts the sample
+positions into FMAs (tests/test_torch_roi_align.py), which moves a weight
+by an ulp or so. The gradients are held within 1e-4 relative plus 1e-5 x
+the largest entry. The autograd Function on the CPU runs the plain forward
+and the plain backward, so its gradient equals the plain backward's bit for
+bit.
 """
 from __future__ import annotations
 
@@ -143,7 +147,7 @@ def _device_fn(name: str, source: str) -> str:
     return m.group(0)
 
 
-@pytest.mark.parametrize("name", ["sample_pos", "axis_cells", "weights"])
+@pytest.mark.parametrize("name", ["sample_pos", "axis_cells"])
 def test_backward_kernel_geometry_is_the_forward_kernels(name):
     """The backward kernel's sample positions, clamps and weights are copies
     of the forward kernel's device functions, so both kernels see the same
@@ -151,6 +155,21 @@ def test_backward_kernel_geometry_is_the_forward_kernels(name):
     fwd = (CSRC / "roi_align_fwd.cu").read_text()
     bwd = (CSRC / "roi_align_bwd.cu").read_text()
     assert _device_fn(name, fwd) == _device_fn(name, bwd)
+
+
+def test_backward_kernel_tables_sum_in_the_plain_order():
+    """The kernel's row and column tables (``axis_table``) take each sample
+    of the bin in order from the forward's geometry and add, from +0 and
+    rounded once each, its lo factor then its hi factor to their cells: the
+    order of ``ops/roi_align.py:_axis_sums``."""
+    fn = _device_fn("axis_table", (CSRC / "roi_align_bwd.cu").read_text())
+    body = re.sub(r"//.*", "", fn)
+    assert "sum[k] = 0.f;" in body
+    assert "for (int i = 0; i < g; ++i)" in body
+    assert "axis_cells(sample_pos(start, bin, g, b, i), n)" in body
+    lo = body.index("if (lo == k) sum[k] = __fadd_rn(sum[k], a.h);")
+    hi = body.index("if (hi == k) sum[k] = __fadd_rn(sum[k], a.l);")
+    assert lo < hi and body.count("sum[k] =") == 3
 
 
 def test_backward_kernel_wrapper_refuses_cpu_tensors():
