@@ -99,7 +99,27 @@ Phases, one line each; any failure raises and the script exits non-zero:
      image), the checkpoint (model, teacher) and the eval at the end; prints
      the warm step time, peak memory and, for one profiled step, the host and
      device ms of each range with the device's busy share; then
-     --eval-only on the checkpoint it wrote, which must load it.
+     --eval-only on the checkpoint it wrote, which must load it;
+ 12. stage 3 through its entry points at full width (R50-FPN 256, RPN
+     2000/1000, 512 ROIs, fc 1024, FocalLoss, bf16): a synthetic VOC tree
+     with pseudo labels and multi-labels and a stage-2 checkpoint from the
+     seeded initializer; sos_wsod_torch.tools.splits (voc_split.yaml) in
+     this process scores the train+val images with the checkpoint's student
+     and writes the dataseed with half of them labeled; then
+     train_net_unbias on configs/stage23/voc_ssod.yaml reading it; cut:
+     SOLVER.IMG_PER_BATCH_LABEL / _UNLABEL 8 -> 2, MAX_ITER 4 (one burn-in
+     step, three semi-supervised steps), SUP_PERCENT the split's. Checks the
+     split's launches (one ROIAlign and one NMS an image), each step's
+     finite losses and keys (num_pseudo_boxes too), the launches per step
+     (burn-in 4/4/4 ROIAlign fwd/bwd, NMS; each semi-supervised step 8/6/10:
+     the student's 4 + 2 images and the teacher's 2), the teacher after
+     the copy step equal to the student's weights before it, the
+     checkpoint's EMA teacher, --eval-only loading the teacher; then one
+     more semi-supervised step on the trainer with the box predictor's
+     score bias raised (+9 on a class the first unlabeled image lists, +8 on
+     one it does not) so that num_pseudo_boxes > 0; prints the steps, the
+     warm step time, peak memory, data_time and, for one profiled step, the
+     host and device ms of each range (``ema`` and ``teacher`` among them).
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the stage-1 inference throughput.
@@ -159,6 +179,14 @@ STAGE2_TRAIN_OPTS = []          # further overrides (none on the card)
 STAGE2_SPLITS = (("train", 8), ("val", 4), ("test", 2))
 STAGE2_TRAIN_RANGES = ("h2d", "backbone", "rpn", "roi_align", "box_head", "losses", "backward",
                        "optimizer")
+# stage-3 training (phase 12): 8 -> 2 labeled and unlabeled images a step
+# and 4 steps (one burn-in, three semi-supervised); SUP_PERCENT and the
+# dataseed come from the split tool
+STAGE3_CONFIG = ROOT / "configs" / "stage23" / "voc_ssod.yaml"
+STAGE3_TRAIN_CUT = ["SOLVER.IMG_PER_BATCH_LABEL", "2", "SOLVER.IMG_PER_BATCH_UNLABEL", "2",
+                    "SOLVER.MAX_ITER", "4"]
+STAGE3_TRAIN_OPTS = []          # further overrides of the split and the training (none on the card)
+STAGE3_TRAIN_RANGES = STAGE2_TRAIN_RANGES + ("ema", "teacher")
 
 
 def log(phase: str, msg: str) -> None:
@@ -1058,36 +1086,41 @@ def phase_stage2(device, smi: str) -> dict:
     return {k: slice_launches[k] + cli_launches[k] for k in slice_launches}
 
 
-def phase_stage2_train(smi: str) -> dict:
-    """Stage-2 training through the CLI at full width (the only cut:
-    STAGE2_TRAIN_CUT), then --eval-only on its checkpoint. Returns the
-    kernels' launches of the whole run."""
-    from sos_wsod_torch.engine.defaults import default_argument_parser
-    from sos_wsod_torch.engine.synthetic import (
-        load_config, write_dataseed, write_pseudo_labels, write_synthetic_voc)
+def _align_nms_counts():
+    """The launches of ROIAlign forward, ROIAlign backward and NMS so far."""
     from sos_wsod_torch.kernels import roi_align as align, roi_align_bwd as align_bwd
-    from sos_wsod_torch.tools import train_net_unbias as cli
 
-    def counts():
-        return align.launches, align_bwd.launches, _nms_launches()
+    return align.launches, align_bwd.launches, _nms_launches()
 
-    cli_trainer = cli.UBTeacherTrainer
-    full = load_config(str(STAGE2_CONFIG))
-    cfg = load_config(str(STAGE2_CONFIG), STAGE2_TRAIN_CUT + STAGE2_TRAIN_OPTS)
-    b, max_iter = cfg.SOLVER.IMG_PER_BATCH_LABEL, cfg.SOLVER.MAX_ITER
 
-    class ProbeTrainer(cli_trainer):
-        """The CLI's trainer, timing each step on the card, recording its
-        kernel launches and losses, and profiling the last step."""
+def _reset_align_nms_counts() -> None:
+    from sos_wsod_torch.kernels import roi_align as align, roi_align_bwd as align_bwd
+
+    align.launches = align_bwd.launches = 0
+    _reset_nms_launches()
+
+
+def _probe_trainer(base, counts, max_iter: int):
+    """A subclass of the CLI's trainer ``base`` that times each step on the
+    card, records its kernel launches (``counts()`` before and after) and
+    scalars, profiles the last step and, at SEMISUPNET.BURN_UP_STEP, keeps
+    the student's weights from before the step and whether the teacher
+    equals them bit for bit after it."""
+
+    class ProbeTrainer(base):
         runs = []
 
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.step_ms, self.step_launches, self.step_scalars, self.prof = [], [], [], None
+            self.before_copy = self.copy_exact = None
             ProbeTrainer.runs.append(self)
 
         def run_step(self):
             torch.cuda.synchronize()
+            copy_step = self.iter == getattr(self, "burn_up_step", None)
+            if copy_step:
+                self.before_copy = {k: v.clone() for k, v in self.model.state_dict().items()}
             t0, before = time.perf_counter(), counts()
             if self.iter == max_iter - 1:
                 acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1101,7 +1134,30 @@ def phase_stage2_train(smi: str) -> dict:
             self.step_launches.append(tuple(a - b for a, b in zip(counts(), before)))
             self.step_scalars.append({k: v for k, (v, it) in self.storage.latest().items()
                                       if it == self.iter})
+            if copy_step:
+                teacher = self.teacher.state_dict()
+                self.copy_exact = all(torch.equal(teacher[k], v)
+                                      for k, v in self.before_copy.items())
 
+    return ProbeTrainer
+
+
+def phase_stage2_train(smi: str) -> dict:
+    """Stage-2 training through the CLI at full width (the only cut:
+    STAGE2_TRAIN_CUT), then --eval-only on its checkpoint. Returns the
+    kernels' launches of the whole run."""
+    from sos_wsod_torch.engine.defaults import default_argument_parser
+    from sos_wsod_torch.engine.synthetic import (
+        load_config, write_dataseed, write_pseudo_labels, write_synthetic_voc)
+    from sos_wsod_torch.tools import train_net_unbias as cli
+
+    counts = _align_nms_counts
+    cli_trainer = cli.UBTeacherTrainer
+    full = load_config(str(STAGE2_CONFIG))
+    cfg = load_config(str(STAGE2_CONFIG), STAGE2_TRAIN_CUT + STAGE2_TRAIN_OPTS)
+    b, max_iter = cfg.SOLVER.IMG_PER_BATCH_LABEL, cfg.SOLVER.MAX_ITER
+
+    ProbeTrainer = _probe_trainer(cli_trainer, counts, max_iter)
     records = _LogRecords()
     root = logging.getLogger()
     saved = (root.handlers[:], root.level)
@@ -1133,8 +1189,7 @@ def phase_stage2_train(smi: str) -> dict:
                     ["--config-file", str(STAGE2_CONFIG), *flags, *STAGE2_TRAIN_CUT,
                      *STAGE2_TRAIN_OPTS, "OUTPUT_DIR", "output3"]))
 
-            align.launches = align_bwd.launches = 0
-            _reset_nms_launches()
+            _reset_align_nms_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             trainer = run()
@@ -1202,6 +1257,187 @@ def phase_stage2_train(smi: str) -> dict:
     return launches
 
 
+def phase_stage3_train(smi: str) -> dict:
+    """Stage 3 through its entry points at full width: the split tool on a
+    stage-2 checkpoint, voc_ssod through the CLI (the cuts: STAGE3_TRAIN_CUT
+    and the split's dataseed), --eval-only on the teacher, then one more
+    semi-supervised step on the trainer with the box predictor biased so
+    that pseudo boxes pass. Returns the kernels' launches of the whole
+    phase."""
+    from sos_wsod_torch.engine.defaults import default_argument_parser
+    from sos_wsod_torch.engine.synthetic import load_config
+    from sos_wsod_torch.tools import repeat_train
+    from sos_wsod_torch.tools import train_net_unbias as cli
+
+    full = load_config(str(STAGE3_CONFIG))
+    cfg = load_config(str(STAGE3_CONFIG), STAGE3_TRAIN_CUT + STAGE3_TRAIN_OPTS)
+    bl, bu, max_iter = (cfg.SOLVER.IMG_PER_BATCH_LABEL, cfg.SOLVER.IMG_PER_BATCH_UNLABEL,
+                        cfg.SOLVER.MAX_ITER)
+    burn_up = cfg.SEMISUPNET.BURN_UP_STEP
+    cli_trainer = cli.UBTeacherTrainer
+    ProbeTrainer = _probe_trainer(cli_trainer, _align_nms_counts, max_iter)
+    records = _LogRecords()
+    root = logging.getLogger()
+    saved = (root.handlers[:], root.level)
+    logging.getLogger(cli.__name__).addHandler(records)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_align_nms_counts()
+        t0 = time.perf_counter()
+        seed_opts = repeat_train.write_stage3_inputs(tmp, STAGE3_TRAIN_OPTS, RAW_HW, 8)
+        torch.cuda.synchronize()
+        secs_split = time.perf_counter() - t0
+        split_launches = _align_nms_counts()
+        n_train = sum(n for split, n in repeat_train.STAGE2_SPLITS if split != "test")
+        seed = json.loads(pathlib.Path(tmp, seed_opts[3]).read_text())
+        (percent, inner), = seed.items()
+        if split_launches != (n_train, 0, n_train) or len(inner["1"]) != n_train // 2 or \
+                percent != seed_opts[1]:
+            raise AssertionError(f"split: launches {split_launches}, dataseed {seed}, "
+                                 f"overrides {seed_opts}")
+        log("stage3-train", f"synthetic VOC tree {dict(repeat_train.STAGE2_SPLITS)} of {RAW_HW} "
+                            f"with pseudo labels and multi-labels, a stage-2 checkpoint, then "
+                            f"sos_wsod_torch.tools.splits ({repeat_train.SPLIT_CONFIG.name}, "
+                            f"--k {n_train // 2}) in {secs_split:.1f} s: percent {percent}, "
+                            f"labeled positions {inner['1']}; launches ROIAlign fwd/bwd, NMS "
+                            f"{split_launches}; cut {STAGE3_TRAIN_CUT} (the config's "
+                            f"SOLVER.IMG_PER_BATCH_LABEL/_UNLABEL "
+                            f"{full.SOLVER.IMG_PER_BATCH_LABEL}/"
+                            f"{full.SOLVER.IMG_PER_BATCH_UNLABEL}, MAX_ITER "
+                            f"{full.SOLVER.MAX_ITER}, SUP_PERCENT {full.DATALOADER.SUP_PERCENT}); "
+                            f"width as configured: R{cfg.MODEL.RESNETS.DEPTH}-FPN "
+                            f"{cfg.MODEL.FPN.OUT_CHANNELS}, RPN top-k "
+                            f"{cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN}/"
+                            f"{cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN}, "
+                            f"{cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE} ROIs, fc "
+                            f"{cfg.MODEL.ROI_BOX_HEAD.FC_DIM}, {cfg.MODEL.ROI_HEADS.LOSS}, "
+                            f"{cfg.TPU.COMPUTE_DTYPE}")
+        os.chdir(tmp)
+        cli.UBTeacherTrainer = ProbeTrainer
+        try:
+            def run(*flags):
+                return cli.main(default_argument_parser().parse_args(
+                    ["--config-file", str(STAGE3_CONFIG), *flags, *STAGE3_TRAIN_CUT,
+                     *seed_opts, *STAGE3_TRAIN_OPTS, "OUTPUT_DIR", "output5"]))
+
+            _reset_align_nms_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = run()
+            torch.cuda.synchronize()
+            secs_train = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            train_launches = _align_nms_counts()
+            state = torch.load("output5/model_final.pth", map_location="cpu", weights_only=True)
+            ema_teacher = {k: v.to("cpu", copy=True)
+                           for k, v in trainer.teacher.state_dict().items()}
+            t0 = time.perf_counter()
+            results = run("--eval-only")
+            torch.cuda.synchronize()
+            secs_eval = time.perf_counter() - t0
+            eval_launches = tuple(a - c for a, c in zip(_align_nms_counts(), train_launches))
+            hist = trainer.storage.histories()
+
+            # one more semi-supervised step on the trainer, the box predictor
+            # of the student and the teacher biased (tests/test_torch_ssod.py)
+            # so that detections of a class the first unlabeled image lists
+            # score above BBOX_THRESHOLD
+            batch = next(trainer.data_iter)
+            listed = np.flatnonzero(batch["unlabel_k"][0]["multi_label_oh"])
+            absent = int(np.flatnonzero(batch["unlabel_k"][0]["multi_label_oh"] == 0)[0])
+            with torch.no_grad():
+                for m in (trainer.model, trainer.teacher):
+                    bias = m.roi_heads.box_predictor.cls_score.bias
+                    bias[int(listed[0])] += 9.0
+                    bias[absent] += 8.0
+            before = _align_nms_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            direct = {k: float(v) for k, v in trainer.semisup_step(batch).items()}
+            torch.cuda.synchronize()
+            direct_ms = (time.perf_counter() - t0) * 1e3
+            direct_launches = tuple(a - c for a, c in zip(_align_nms_counts(), before))
+            total = _align_nms_counts()
+        finally:
+            cli.UBTeacherTrainer = cli_trainer
+            os.chdir(cwd)
+            logging.getLogger(cli.__name__).removeHandler(records)
+            for h in root.handlers:
+                if h not in saved[0]:
+                    h.close()
+            root.handlers[:], root.level = saved
+
+    (probe,) = ProbeTrainer.runs
+    pseudo_keys = ("loss_cls_pseudo", "loss_box_reg_pseudo", "loss_rpn_cls_pseudo",
+                   "loss_rpn_loc_pseudo", "num_pseudo_boxes")
+    loss_keys = ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "total_loss")
+    for step, sc in enumerate(probe.step_scalars):
+        keys = loss_keys + (pseudo_keys if step >= burn_up else ())
+        if set(sc) != set(keys) | {"data_time"} or not all(np.isfinite(sc[k]) for k in keys):
+            raise AssertionError(f"stage-3 step {step}: scalars {sc}")
+    burn_in, semisup = (2 * bl, 2 * bl, 2 * bl), (2 * bl + 2 * bu, 2 * bl + bu, 2 * bl + 3 * bu)
+    want = [burn_in] * burn_up + [semisup] * (max_iter - burn_up)
+    if probe.step_launches != want or direct_launches != semisup:
+        raise AssertionError(f"stage-3 launches (ROIAlign fwd, bwd, NMS) per step "
+                             f"{probe.step_launches} and direct {direct_launches}, expected "
+                             f"{want} and {semisup}")
+    if not probe.copy_exact:
+        raise AssertionError(f"the teacher after step {burn_up} != the student before its "
+                             f"update ({probe.copy_exact})")
+    if set(state) != {"model", "teacher", "optimizer", "scheduler", "generator", "iter"} or \
+            state["iter"] != max_iter:
+        raise AssertionError(f"checkpoint keys {sorted(state)}, iteration {state.get('iter')}")
+    moved = [k for k, v in state["teacher"].items()
+             if not torch.equal(v, probe.before_copy[k].cpu())]
+    differ = [k for k, v in ema_teacher.items() if not torch.equal(state["teacher"][k], v)]
+    if differ or not moved:
+        raise AssertionError(f"the checkpoint's teacher is not the EMA teacher: {len(differ)} "
+                             f"entries differ ({differ[:3]}), {len(moved)} moved since the copy")
+    n_test = dict(repeat_train.STAGE2_SPLITS)["test"]
+    if eval_launches != (n_test, 0, 2 * n_test):
+        raise AssertionError(f"eval-only launches {eval_launches}")
+    loaded = [m for m in records.messages if m.startswith("Loaded")]
+    if len(loaded) != 1 or not loaded[0].startswith("Loaded the teacher of") or \
+            not loaded[0].endswith(f"model_final.pth (iteration {max_iter})"):
+        raise AssertionError(f"eval-only loaded {loaded}")
+    if "voc_2007_test/bbox/AP50" not in hist:
+        raise AssertionError(f"no eval after training: {sorted(hist)}")
+    if not (all(np.isfinite(v) for v in direct.values()) and direct["num_pseudo_boxes"] > 0):
+        raise AssertionError(f"direct semi-supervised step: {direct}")
+    for step, (ms, sc) in enumerate(zip(probe.step_ms, probe.step_scalars)):
+        log("stage3-train", f"step {step} ({'burn-in' if step < burn_up else 'semi-supervised'})"
+            f": {ms:.1f} ms" + (" (profiled)" if step == max_iter - 1 else "") + "; " +
+            ", ".join(f"{k} {sc[k]:.4f}" for k in loss_keys + pseudo_keys if k in sc) +
+            f"; data_time {sc['data_time'] * 1e3:.1f} ms; launches ROIAlign fwd/bwd, NMS "
+            f"{probe.step_launches[step]}")
+    warm = statistics.median(probe.step_ms[burn_up + 1:max_iter - 1] or probe.step_ms[-1:])
+    host, dev, other = _range_ms(probe.prof, STAGE3_TRAIN_RANGES)
+    busy = sum(dev.values()) + other
+    log("stage3-train", f"{max_iter} steps of {bl} + {bl} labeled and {bu} + {bu} unlabeled views "
+                        f"+ eval in {secs_train:.1f} s; smoke reading: warm semi-supervised step "
+                        f"{warm:.1f} ms = {(bl + bu) * 1e3 / warm:.2f} img/s ({bl} labeled + "
+                        f"{bu} unlabeled images a step), burn-in step {probe.step_ms[0]:.1f} ms; "
+                        f"peak memory {peak_gb:.2f} GB on {smi}")
+    log("stage3-train", "profiled step, range host/device ms (the teacher's pass is inside "
+                        "teacher; its nested backbone/rpn/roi_align/box_head host times are "
+                        "counted in those rows too): " +
+        ", ".join(f"{n} {host[n]:.2f}/{dev[n]:.2f}" for n in STAGE3_TRAIN_RANGES) +
+        f", device outside the ranges {other:.2f}; busy {busy:.2f} of "
+        f"{probe.step_ms[-1]:.2f} ms ({100 * busy / probe.step_ms[-1]:.1f}%, profiler on)")
+    log("stage3-train", f"teacher after the copy step == the student before step {burn_up}'s "
+                        f"update; checkpoint teacher == the EMA teacher ({len(moved)} of "
+                        f"{len(ema_teacher)} entries moved since the copy); eval-only "
+                        f"({loaded[0]}) "
+                        f"in {secs_eval:.1f} s: AP50 "
+                        f"{results['voc_2007_test']['bbox']['AP50']:.3f}, launches {eval_launches}")
+    log("stage3-train", f"direct semi-supervised step with class {int(listed[0])} (listed) +9 "
+                        f"and {absent} (absent) +8 on the score bias: {direct_ms:.1f} ms, "
+                        + ", ".join(f"{k} {direct[k]:.4f}" for k in loss_keys + pseudo_keys) +
+                        f"; launches {direct_launches}")
+    return dict(zip(("roi_align_fwd", "roi_align_bwd", "nms"),
+                    (a + b for a, b in zip(split_launches, total))))
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging its wall seconds."""
     t0 = time.perf_counter()
@@ -1228,9 +1464,11 @@ def main() -> int:
     cli_launches = timed("8 stage-1 CLI", phase_cli, smi)
     stage2_launches = timed("9-10 stage-2 inference and CLI", phase_stage2, device, smi)
     stage2_train_launches = timed("11 stage-2 training", phase_stage2_train, smi)
+    stage3_train_launches = timed("12 stage-3 split and training", phase_stage3_train, smi)
     paths = {"stage-1 inference": infer_launches, "stage-1 training": train_launches,
              "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches,
-             "stage-2 training": stage2_train_launches}
+             "stage-2 training": stage2_train_launches,
+             "stage-3 split and training": stage3_train_launches}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd",
                           "roi_align_bwd")}

@@ -1,6 +1,6 @@
 """Does training repeat from its seed on the card?
 
-    python -m sos_wsod_torch.tools.repeat_train [--stage 1|2] [--steps 4]
+    python -m sos_wsod_torch.tools.repeat_train [--stage 1|2|3] [--steps 4]
         [--deterministic] [--bwd-source OLD_BWD.cu]
 
 ``--stage 1`` (the default) runs the full-width training slice that
@@ -13,14 +13,21 @@ burn-in step that ``chip_smoke.py``'s phase 11 drives
 from the seed, 2 labeled and 2 unlabeled images a step as phase 11 cuts it,
 on a synthetic VOC tree with pseudo labels and the dataseed in a temporary
 directory, through the two-crop loader and ``UBTeacherTrainer``) twice the
-same way. It prints each step's losses of both runs (``loss_cls`` and
-``total_loss``; stage 2 also the box and RPN losses), whether each pair is
-equal bit for bit, and whether the trained weights of both runs are. ``--deterministic`` runs both under
+same way. ``--stage 3`` runs phase 12's stage-3 training: the same tree, a
+stage-2 checkpoint from the seed, the dataseed the split tool
+(``tools/splits.py``, ``configs/stage23/voc_split.yaml``) writes from it
+with half the train+val images labeled, then ``configs/stage23/voc_ssod.yaml``
+with 2 + 2 images a step: one burn-in step, then semi-supervised steps
+with the EMA teacher. It prints each step's losses of both runs
+(``loss_cls`` and ``total_loss``; stage 2 also the box and RPN losses,
+stage 3 also the pseudo-supervised ones and ``num_pseudo_boxes``), whether
+each pair is equal bit for bit, and whether the trained weights of both
+runs are (stage 3: the student's and the teacher's). ``--deterministic`` runs both under
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` with cuDNN's
 deterministic algorithms and ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, and lists
 the operations that warned they have no deterministic implementation: what
 is left to make a run repeat. ``--bwd-source`` runs the stage's backward
-kernel (ROIPool for stage 1, ROIAlign for stage 2) built from another source
+kernel (ROIPool for stage 1, ROIAlign for stages 2 and 3) built from another source
 (an earlier version, e.g. the f32 atomics, through the adapter of
 ``bench_roi_pool.py`` or ``bench_roi_align.py``) in place of the current
 one, to tell its share. The last line is a JSON summary.
@@ -49,6 +56,10 @@ STAGE2_LOSSES = ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "to
 STAGE2_WATCH = ("roi_heads.box_predictor.cls_score.weight", "roi_heads.box_head.fc1.weight",
                 "proposal_generator.head.conv.weight", "backbone.fpn.fpn_output2.weight",
                 "backbone.bottom_up.res5_block0.conv1.weight")
+STAGE3_CONFIG = ROOT / "configs" / "stage23" / "voc_ssod.yaml"
+SPLIT_CONFIG = ROOT / "configs" / "stage23" / "voc_split.yaml"
+STAGE3_LOSSES = STAGE2_LOSSES + ("loss_cls_pseudo", "loss_box_reg_pseudo", "loss_rpn_cls_pseudo",
+                                 "loss_rpn_loc_pseudo", "num_pseudo_boxes")
 
 
 def train_once(device, steps: int, opts: Sequence = (), raw_hw=RAW_HW,
@@ -118,21 +129,88 @@ def train_stage2_once(device, steps: int, opts: Sequence = (), raw_hw=RAW_HW,
             "weights": {n: params[n].detach().clone() for n in STAGE2_WATCH}}
 
 
+def write_stage3_inputs(root: str, opts: Sequence = (), raw_hw=RAW_HW,
+                        num_proposals: int = 8) -> List[str]:
+    """What stage-3 training reads, written under ``root``: the synthetic
+    VOC tree of STAGE2_SPLITS with pseudo labels, a stage-2 checkpoint from
+    the seed (``output_stage2/model_final``), and the dataseed
+    (``dataseed/split.txt``) that the split tool writes from it, run in this
+    process with ``--k`` half the train+val images. ``opts`` are config
+    overrides of both the split and the training (a small width for a run on
+    the CPU). Returns the overrides that point voc_ssod at that dataseed."""
+    from sos_wsod_torch.engine.synthetic import (
+        load_config, write_pseudo_labels, write_stage2_checkpoint, write_synthetic_voc)
+    from sos_wsod_torch.tools import splits
+
+    write_synthetic_voc(root, STAGE2_SPLITS, raw_hw, num_proposals, SEED)
+    write_pseudo_labels(root, [split for split, _ in STAGE2_SPLITS if split != "test"])
+    write_stage2_checkpoint(os.path.join(root, "output_stage2"),
+                            load_config(str(SPLIT_CONFIG), opts), SEED)
+    n_train = sum(n for split, n in STAGE2_SPLITS if split != "test")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        _, percent = splits.main(["--config", str(SPLIT_CONFIG), "--ckpt",
+                                  "output_stage2/model_final", "--save-path", "dataseed/split.txt",
+                                  "--k", str(n_train // 2), *(str(o) for o in opts)])
+    finally:
+        os.chdir(cwd)
+    return ["DATALOADER.SUP_PERCENT", str(percent), "DATALOADER.RANDOM_DATA_SEED_PATH",
+            "dataseed/split.txt"]
+
+
+def train_stage3_once(device, steps: int, opts: Sequence = (), raw_hw=RAW_HW,
+                      num_proposals: int = 8) -> Dict[str, object]:
+    """One stage-3 run from the seed (``write_stage3_inputs`` in a temporary
+    directory, the working directory while it trains): per-step losses and
+    ``num_pseudo_boxes``, and the watched weights of the student and the
+    teacher after the last step."""
+    from sos_wsod_torch.data.datasets.voc import register_all_voc
+    from sos_wsod_torch.data.mapper_twocrop import build_semisup_loader_from_cfg
+    from sos_wsod_torch.engine.synthetic import build_synthetic_frcnn, load_config
+    from sos_wsod_torch.engine.ubteacher import UBTeacherTrainer
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        seed_opts = write_stage3_inputs(tmp, opts, raw_hw, num_proposals)
+        cfg = load_config(str(STAGE3_CONFIG), [*STAGE2_CUT, "SOLVER.MAX_ITER", steps, *opts,
+                                               *seed_opts])
+        os.chdir(tmp)
+        try:
+            register_all_voc()
+            model = build_synthetic_frcnn(cfg, device, max(cfg.SEED, 0))
+            trainer = UBTeacherTrainer(cfg, model, build_semisup_loader_from_cfg(cfg))
+            trainer.train(0, steps)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+    hist = trainer.storage.histories()
+    student, teacher = dict(model.named_parameters()), trainer.teacher.state_dict()
+    # per step; None where a step has no such scalar (the burn-in's pseudo terms)
+    by_step = {k: dict((it, v) for v, it in hist[k].values()) if k in hist else {}
+               for k in STAGE3_LOSSES}
+    return {**{k: [by_step[k].get(step) for step in range(steps)] for k in STAGE3_LOSSES},
+            "weights": {**{n: student[n].detach().clone() for n in STAGE2_WATCH},
+                        **{f"teacher.{n}": teacher[n].clone() for n in STAGE2_WATCH}}}
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--stage", type=int, choices=(1, 2), default=1)
+    ap.add_argument("--stage", type=int, choices=(1, 2, 3), default=1)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--deterministic", action="store_true",
                     help="run both trainings with deterministic algorithms")
     ap.add_argument("--bwd-source", default=None,
-                    help="a backward source (ROIPool for stage 1, ROIAlign for stage 2) to run "
+                    help="a backward source (ROIPool for stage 1, ROIAlign for stages 2-3) to "
+                         "run "
                          "in place of the current kernel")
     return ap.parse_args(argv)
 
 
 def use_bwd_source(path: str, stage: int = 1) -> None:
     """Route the stage's autograd Function's backward to a build of ``path``."""
-    if stage == 2:
+    if stage in (2, 3):
         from sos_wsod_torch.ops import roi_align as ops
         from sos_wsod_torch.tools import bench_roi_align as bench
 
@@ -161,8 +239,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     device = torch.device("cuda", 0)
     if args.bwd_source:
         use_bwd_source(args.bwd_source, args.stage)
-    once = train_once if args.stage == 1 else train_stage2_once
-    keys = ("loss_cls", "total_loss") if args.stage == 1 else STAGE2_LOSSES
+    once, keys = {1: (train_once, ("loss_cls", "total_loss")),
+                  2: (train_stage2_once, STAGE2_LOSSES),
+                  3: (train_stage3_once, STAGE3_LOSSES)}[args.stage]
     runs: List[dict] = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")

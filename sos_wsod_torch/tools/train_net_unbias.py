@@ -13,8 +13,10 @@ train_net.py):
     else on the model) and PeriodicWriter; ``--resume`` continues from
     ``last_checkpoint``. As in the JAX CLI, MODEL.WEIGHTS is not read:
     training starts from the seeded initializer (``engine/synthetic.py``,
-    SEED). Past SEMISUPNET.BURN_UP_STEP the ubteacher trainer raises: the
-    semi-supervised step is the next slice of the port;
+    SEED). The ubteacher trainer runs its burn-in below
+    SEMISUPNET.BURN_UP_STEP and the semi-supervised step (EMA teacher,
+    pseudo labels) from there on; ``--num-gpus`` above 1 raises (data
+    parallelism is not ported);
   - ``--eval-only``: the checkpoint named by ``last_checkpoint`` (else
     ``model_final``) is loaded, its teacher's weights when
     SEMISUPNET.EVAL_TEACHER is set and the file holds a teacher, else the
@@ -25,7 +27,7 @@ train_net.py):
     OUTPUT_DIR/detection_results/frcnn_{dataset}.json).
 
     python -m sos_wsod_torch.tools.train_net_unbias \\
-        --config-file configs/stage23/voc_baseline.yaml [--resume] [--eval-only] [KEY VALUE ...]
+        --config-file configs/stage23/voc_ssod.yaml [--resume] [--eval-only] [KEY VALUE ...]
 """
 from __future__ import annotations
 

@@ -61,12 +61,13 @@ N_ANCHORS = 3 * (16 * 16 + 8 * 8 + 4 * 4 + 2 * 2 + 1)   # p2-p6 of a 64 x 64 ima
 N_PROPOSALS = 32 + G                                    # post-NMS top-k + appended gt
 
 
-def _cfgs():
+def _cfgs(config=BASELINE, opts=OPTS):
+    """The port's and the JAX package's config of ``config`` with ``opts``."""
     cfgs = []
     for make in (get_cfg, jax_get_cfg):
         cfg = make()
-        cfg.merge_from_file(BASELINE)
-        cfg.merge_from_list(list(OPTS))
+        cfg.merge_from_file(config)
+        cfg.merge_from_list(list(opts))
         cfgs.append(cfg)
     return cfgs
 
@@ -109,18 +110,32 @@ def _randomize(params, rng):
     return walk(params, ())
 
 
-def step_draws(key, b):
-    """JAX's uniforms for a supervised step of ``b`` images from ``key``, in
-    the port's order: per image the RPN's positives and negatives, the ROI
-    heads' positives and negatives, then the ROI heads' compaction noise."""
+def image_draws(key, n_rois=N_PROPOSALS, n_anchors=N_ANCHORS):
+    """JAX's uniforms for one image's losses under ``key``, in the port's
+    order: the RPN's positives and negatives, the ROI heads' positives and
+    negatives, then the ROI heads' compaction noise."""
+    k_rpn, k_roi = jax.random.split(key)
     out = []
-    for k in jax.random.split(key, b):
-        k_rpn, k_roi = jax.random.split(k)
-        for kk, n in ((k_rpn, N_ANCHORS), (k_roi, N_PROPOSALS)):
-            k_pos, k_neg = jax.random.split(kk)
-            out += [jax.random.uniform(k_pos, (n,)), jax.random.uniform(k_neg, (n,))]
-        out.append(jax.random.uniform(k_roi, (N_PROPOSALS,)))
+    for kk, n in ((k_rpn, n_anchors), (k_roi, n_rois)):
+        k_pos, k_neg = jax.random.split(kk)
+        out += [jax.random.uniform(k_pos, (n,)), jax.random.uniform(k_neg, (n,))]
+    out.append(jax.random.uniform(k_roi, (n_rois,)))
     return [np.asarray(a) for a in out]
+
+
+def step_draws(key, b, n_rois=N_PROPOSALS):
+    """JAX's uniforms for a supervised step of ``b`` images from ``key``
+    (each image's key from split(key, b)), in the port's order."""
+    return [a for k in jax.random.split(key, b) for a in image_draws(k, n_rois)]
+
+
+def semisup_draws(key, b, n_unlabel_rois=N_PROPOSALS):
+    """JAX's uniforms for a semi-supervised step of b + b labeled and b
+    unlabeled images from ``key`` (make_semisup_step's k_l, k_u =
+    split(key)): the 2b labeled images', then the unlabeled images', whose
+    ROIs count the post-NMS proposals and the pseudo ground truth's slots."""
+    k_l, k_u = jax.random.split(key)
+    return step_draws(k_l, 2 * b) + step_draws(k_u, b, n_unlabel_rois)
 
 
 class JaxDraws:
@@ -154,7 +169,11 @@ def _port_model(cfg, params):
 
 
 def _flax_path(name):
+    """A port state-dict name -> its flax path (FrozenBN's four statistics
+    keep their names)."""
     *path, leaf = name.split(".")
+    if path[-1].endswith("_norm"):
+        return path + [leaf]
     return path + ["kernel" if leaf == "weight" else "bias"]
 
 
@@ -308,28 +327,44 @@ def test_trainer_raises_on_nan_loss_before_the_update(setup):
 
 
 def test_ubteacher_burn_in_then_refuses_the_semisup_step(setup):
-    """UBTeacherTrainer: burn-in steps train on label_k (label_q + label_k
-    with BURN_UP_WITH_STRONG_AUG), the teacher stays the model as built;
-    at BURN_UP_STEP it raises, naming the next slice."""
+    """UBTeacherTrainer: the burn-in step trains on label_q + label_k (with
+    BURN_UP_WITH_STRONG_AUG) and leaves the teacher the model as built; at
+    BURN_UP_STEP the semi-supervised step, once refused, now runs: it first
+    copies the student's weights from before its update into the teacher
+    (keep 0), then trains the student on the supervised and the
+    pseudo-supervised losses (held against the JAX step in
+    tests/test_torch_ssod.py)."""
     cfg, _, _, params, samples = setup
     cfg.defrost()
     cfg.SEMISUPNET.BURN_UP_STEP = 1
     cfg.SEMISUPNET.BURN_UP_WITH_STRONG_AUG = True
     try:
         pm = _port_model(cfg, params)
-        batch = {"label_q": samples[:1], "label_k": samples[1:], "unlabel_q": samples[:1],
-                 "unlabel_k": samples[1:]}
+        ml = [dict(s, multi_label_oh=np.ones(20, np.float32)) for s in samples]
+        batch = {"label_q": ml[:1], "label_k": ml[1:], "unlabel_q": ml[:1], "unlabel_k": ml[1:]}
         trainer = UBTeacherTrainer(cfg, pm, iter([batch, batch]))
         start = {k: v.clone() for k, v in pm.state_dict().items()}
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4.3"):
-            trainer.train(0, 2)
-        assert trainer.iter == 1 and trainer.steps_done == 1
+        trainer.train(0, 1)
         teacher = trainer.teacher.state_dict()
         assert all(torch.equal(teacher[k], v) for k, v in start.items())
-        assert not torch.equal(pm.roi_heads.box_head.fc1.weight,
+        burnt = {k: v.clone() for k, v in pm.state_dict().items()}
+        assert not torch.equal(burnt["roi_heads.box_head.fc1.weight"],
                                start["roi_heads.box_head.fc1.weight"])
+        trainer.train(1, 2)
+        assert trainer.iter == 2 and trainer.steps_done == 2
+        teacher = trainer.teacher.state_dict()
+        assert set(teacher) == set(burnt) and all(torch.equal(teacher[k], v)
+                                                  for k, v in burnt.items())
+        assert not torch.equal(pm.roi_heads.box_head.fc1.weight,
+                               burnt["roi_heads.box_head.fc1.weight"])
+        hist = trainer.storage.histories()
+        for k in ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "loss_cls_pseudo",
+                  "loss_box_reg_pseudo", "loss_rpn_cls_pseudo", "loss_rpn_loc_pseudo",
+                  "total_loss", "num_pseudo_boxes"):
+            assert np.isfinite(hist[k].latest), k
         state = trainer.state_dict()
         assert set(state) == {"model", "teacher", "optimizer", "scheduler", "generator", "iter"}
+        assert state["iter"] == 2
         assert trainer.eval_model() is pm    # voc_baseline: EVAL_TEACHER False
     finally:
         cfg.SEMISUPNET.BURN_UP_STEP = 12000

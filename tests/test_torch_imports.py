@@ -17,6 +17,8 @@ sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["sos_wsod_tpu"] = None
 import sos_wsod_torch
+import torch
+torch.set_num_threads(1)   # beside pytest-xdist's other processes on the same cores
 names = [m.name for m in pkgutil.walk_packages(sos_wsod_torch.__path__, "sos_wsod_torch.")]
 for name in names:
     importlib.import_module(name)
@@ -108,6 +110,19 @@ with tempfile.TemporaryDirectory() as tmp:
             "sos_wsod_torch.core.sampling", "sos_wsod_torch.kernels.roi_align_bwd"} <= set(names)
     os.chdir(cwd)
 
+# stage 3: the split tool's dataseed, a burn-in step and a semi-supervised
+# step (the path of chip_smoke's phase 12), at a small size on the CPU
+from sos_wsod_torch.tools import repeat_train
+s3_opts = ["MODEL.DEVICE", "cpu", "TPU.COMPUTE_DTYPE", "float32", "MODEL.RESNETS.DEPTH", 14,
+           "MODEL.FPN.OUT_CHANNELS", 16, "MODEL.ROI_BOX_HEAD.FC_DIM", 32,
+           "MODEL.RPN.PRE_NMS_TOPK_TRAIN", 32, "MODEL.RPN.POST_NMS_TOPK_TRAIN", 16,
+           "MODEL.RPN.PRE_NMS_TOPK_TEST", 32, "MODEL.RPN.POST_NMS_TOPK_TEST", 16,
+           "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 16, "INPUT.MIN_SIZE_TRAIN", (40, 48),
+           "INPUT.MAX_SIZE_TRAIN", 80, "INPUT.MIN_SIZE_TEST", 48, "TPU.PGT_CAPACITY", 8]
+run3 = repeat_train.train_stage3_once("cpu", 2, s3_opts, (60, 80), 8)
+assert run3["loss_cls_pseudo"][1] is not None and run3["num_pseudo_boxes"][1] is not None, run3
+assert {"sos_wsod_torch.tools.splits", "sos_wsod_torch.tools.convert_checkpoints"} <= set(names)
+
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad
@@ -123,7 +138,9 @@ def test_port_and_chip_smoke_import_without_jax():
     the evaluator's JSON), one training step (synthetic dicts, the 4-view
     mapper, the batched stream, the trainer), the stage-1 CLI on a
     synthetic VOC tree (one step, then --eval-only's JSON), one stage-2
-    predict and the stage-2 CLI's --eval-only on a stage-2 checkpoint."""
+    predict and the stage-2 CLI's --eval-only on a stage-2 checkpoint, and
+    stage 3: the split tool on a stage-2 checkpoint, then a burn-in step and
+    a semi-supervised step on its dataseed."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -4,9 +4,10 @@ synthetic VOC tree (engine/synthetic.py:write_synthetic_voc, one image
 shape), with the same weights; the detectron2 weight mapping
 (engine/weights.py:state_dict_from_d2_frcnn) against the JAX package's
 frcnn_param_tree; and training through the CLI on the CPU (two steps, a
-checkpoint with the model and the teacher, --resume, --eval-only on it),
-whose step is held against the JAX package's in
-tests/test_torch_frcnn_train.py.
+checkpoint with the model and the teacher, --resume, --eval-only on it;
+voc_ssod's burn-in and first semi-supervised step), whose steps are held
+against the JAX package's in tests/test_torch_frcnn_train.py and
+tests/test_torch_ssod.py.
 
 Both CLIs run the same random R50-FPN weights (engine/synthetic.py:
 random_d2_frcnn_state_dict, at tiny widths: ResNet depth 14, FPN 32
@@ -176,15 +177,32 @@ def _train(*flags_and_opts):
 
 
 def test_training_is_refused(train_tree, monkeypatch):
-    """What stage-2/3 training does not take yet: more than one GPU
-    (data parallelism), and the ubteacher trainer past its burn-in (the
-    semi-supervised step, the next slice)."""
+    """What stage-2/3 training does not take yet: more than one GPU (data
+    parallelism). The ubteacher trainer past its burn-in, once refused too,
+    now trains: voc_ssod through the CLI, 1 burn-in step and 1
+    semi-supervised step; the checkpoint's teacher is the student after the
+    burn-in step (the copy at BURN_UP_STEP), not the model as built."""
     monkeypatch.chdir(train_tree)
     with pytest.raises(NotImplementedError, match="data parallelism"):
         _train("--num-gpus", "2", *TRAIN, "OUTPUT_DIR", "refused")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4.3"):
-        _train(*TRAIN, "OUTPUT_DIR", "refused", "SEMISUPNET.BURN_UP_STEP", "1",
-               "SOLVER.MAX_ITER", "2")
+    write_dataseed(str(train_tree), load_config(SSOD), 5)
+    trainer = cli.main(default_argument_parser().parse_args(
+        ["--config-file", SSOD, *TRAIN, "SOLVER.MAX_ITER", "2", "OUTPUT_DIR", "ssod_train"]))
+    assert (trainer.burn_up_step, trainer.iter) == (1, 2)
+    hist = trainer.storage.histories()
+    for k in ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "total_loss"):
+        assert len(hist[k].values()) == 2 and np.isfinite(hist[k].latest), k
+    for k in ("loss_cls_pseudo", "loss_box_reg_pseudo", "loss_rpn_cls_pseudo",
+              "loss_rpn_loc_pseudo", "num_pseudo_boxes"):
+        assert len(hist[k].values()) == 1 and np.isfinite(hist[k].latest), k
+    ckpt = Checkpointer(str(train_tree / "ssod_train"))
+    state, burnt = ckpt.load("model_final"), ckpt.load("model_0000000")["model"]
+    init = state_dict_from_d2_frcnn(random_d2_frcnn_state_dict(_tiny_cfg(SSOD), 0))
+    assert set(state["teacher"]) == set(init) == set(burnt)
+    assert all(torch.equal(state["teacher"][k], burnt[k]) for k in burnt)
+    name = "roi_heads.box_head.fc1.weight"
+    assert not torch.equal(state["teacher"][name], init[name])
+    assert not torch.equal(state["model"][name], state["teacher"][name])
 
 
 def test_cli_trains_resumes_and_evaluates(train_tree, monkeypatch):
