@@ -119,7 +119,30 @@ Phases, one line each; any failure raises and the script exits non-zero:
      score bias raised (+9 on a class the first unlabeled image lists, +8 on
      one it does not) so that num_pseudo_boxes > 0; prints the steps, the
      warm step time, peak memory, data_time and, for one profiled step, the
-     host and device ms of each range (``ema`` and ``teacher`` among them).
+     host and device ms of each range (``ema`` and ``teacher`` among them);
+ 13. the pipeline through its hand-offs, then TTA, at full width on a
+     synthetic VOC tree (8 train, 4 val, 4 test 375x500 JPEGs, 4000
+     proposals each): a stage-1 checkpoint from the seeded initializer
+     (its classes tied in each proposal, engine/synthetic.py:
+     write_stage1_checkpoint, so that each image's top 100 detections hold
+     its labelled classes), train_net_stage1 --eval-only with
+     configs/stage1/detection_result_test.yaml (1 ROIPool and 1 NMS launch
+     an image) writing the detection JSON of train, val and test; python -m
+     sos_wsod_torch.tools.pgf, then add_multi_label, each in its own
+     process (every train/val image with a key and a multi-label; the box
+     counts before and after each filter printed); train_net_unbias on
+     voc_baseline.yaml reading those labels (dataseed from
+     engine/synthetic.py:write_dataseed over the images that kept a box),
+     cut to 2 + 2 images and 2 steps (2/2/2 ROIAlign fwd/bwd, NMS a step,
+     finite losses, the checkpoint); sos_wsod_torch.tools.train_net_test_tta
+     on configs/stage23/voc07_tta_test.yaml and that checkpoint over the 4
+     test images (16 views an image: 16 ROIAlign and 32 NMS launches), then
+     on voc07_oicr_plus.yaml and the stage-1 checkpoint with TEST.AUG's
+     defaults (18 views: AVG, 18 ROIPool and 1 NMS an image; UNION on the
+     first image, 18 and 18); the detections finite and inside the image,
+     AP50; the first image of each strategy against the all-plain path
+     (plain ROIAlign / ROIPool and NMS), equal; warm TTA img/s, peak memory
+     and, over one profiled FRCNN TTA image, host and device ms by range.
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the stage-1 inference throughput.
@@ -187,6 +210,15 @@ STAGE3_TRAIN_CUT = ["SOLVER.IMG_PER_BATCH_LABEL", "2", "SOLVER.IMG_PER_BATCH_UNL
                     "SOLVER.MAX_ITER", "4"]
 STAGE3_TRAIN_OPTS = []          # further overrides of the split and the training (none on the card)
 STAGE3_TRAIN_RANGES = STAGE2_TRAIN_RANGES + ("ema", "teacher")
+# the pipeline and TTA (phase 13): the stage-1 dump's config, the TTA config
+# of the released detector, stage 2 on the PGF labels cut to 2 + 2 images
+# and 2 steps; the overrides of each stage (none on the card)
+DETECTION_CONFIG = ROOT / "configs" / "stage1" / "detection_result_test.yaml"
+TTA_CONFIG = ROOT / "configs" / "stage23" / "voc07_tta_test.yaml"
+PIPELINE_STAGE2_CUT = ["SOLVER.IMG_PER_BATCH_LABEL", "2", "SOLVER.IMG_PER_BATCH_UNLABEL", "2",
+                       "SOLVER.MAX_ITER", "2"]
+PIPELINE_STAGE1_OPTS = []
+PIPELINE_STAGE2_OPTS = []
 
 
 def log(phase: str, msg: str) -> None:
@@ -329,24 +361,32 @@ def _reset_nms_launches() -> None:
 
 
 @contextlib.contextmanager
-def _plain_versions(roi_align: bool = False):
-    """Route the card's NMS (and, with ``roi_align``, its ROIAlign) through
-    the plain versions, for a comparison with the kernels; never on a
-    path whose launches are counted."""
+def _plain_versions(roi_align: bool = False, roi_pool: bool = False):
+    """Route the card's NMS (and, with ``roi_align`` or ``roi_pool``, its
+    ROIAlign or ROIPool forward) through the plain versions, for a
+    comparison with the kernels; never on a path whose launches are
+    counted."""
     from sos_wsod_torch.ops import nms as nms_ops
     from sos_wsod_torch.ops import roi_align as align_ops
+    from sos_wsod_torch.ops import roi_pool as pool_ops
 
-    saved = nms_ops.nms_keep_sorted_cuda, align_ops.roi_align_fwd_cuda
+    saved = nms_ops.nms_keep_sorted_cuda, align_ops.roi_align_fwd_cuda, pool_ops.roi_pool_fwd_cuda
     nms_ops.nms_keep_sorted_cuda = nms_ops.greedy_keep_sorted_reference
     if roi_align:
         def plain_align(features, boxes, valid, level, scales, **kw):
             out = align_ops.roi_align_levels_reference(features, boxes, valid, level, scales, **kw)
             return out.permute(0, 2, 3, 1)
         align_ops.roi_align_fwd_cuda = plain_align
+    if roi_pool:
+        def plain_pool(feat, hs, he, ws, we, valid, row_scale, return_argmax=True):
+            out, pos = pool_ops.roi_pool_reference(feat, hs, he, ws, we, valid, row_scale)
+            return out, (pos if return_argmax else None)
+        pool_ops.roi_pool_fwd_cuda = plain_pool
     try:
         yield
     finally:
-        nms_ops.nms_keep_sorted_cuda, align_ops.roi_align_fwd_cuda = saved
+        (nms_ops.nms_keep_sorted_cuda, align_ops.roi_align_fwd_cuda,
+         pool_ops.roi_pool_fwd_cuda) = saved
 
 
 def phase_nms_vs_plain(device) -> dict:
@@ -1438,6 +1478,337 @@ def phase_stage3_train(smi: str) -> dict:
                     (a + b for a, b in zip(split_launches, total))))
 
 
+class _ImageProbe:
+    """Records, for each image the TTA CLI evaluates, the launches of A fwd,
+    C and D and the synchronized wall time from its read to its
+    ``process_single``, and the detections it hands the evaluator."""
+
+    def __init__(self, cli):
+        from sos_wsod_torch.kernels import roi_pool as pool
+        from sos_wsod_torch.evaluation.voc_eval import PascalVOCDetectionEvaluator
+
+        self.cli, self.evaluator_cls = cli, PascalVOCDetectionEvaluator
+        self.saved = cli.read_image_bgr, PascalVOCDetectionEvaluator.process_single
+        self.launches, self.ms, self.dets = [], [], {}
+
+        def counts():
+            return pool.launches, _nms_launches(), _align_nms_counts()[0]
+
+        def read(path):
+            torch.cuda.synchronize()
+            self.start = time.perf_counter(), counts()
+            return self.saved[0](path)
+
+        def process_single(ev, image_id, boxes, scores, classes, valid=None):
+            torch.cuda.synchronize()
+            t0, c0 = self.start
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.launches.append(tuple(a - b for a, b in zip(counts(), c0)))
+            self.dets[image_id] = tuple(np.asarray(x) for x in (boxes, scores, classes, valid))
+            return self.saved[1](ev, image_id, boxes, scores, classes, valid)
+
+        cli.read_image_bgr, PascalVOCDetectionEvaluator.process_single = read, process_single
+
+    def close(self):
+        self.cli.read_image_bgr, self.evaluator_cls.process_single = self.saved
+
+
+def _check_tta_dets(name: str, dets: dict, sizes: dict) -> int:
+    """Every image's valid detections finite and inside its image (0.01 px
+    of slack for the inverse resize's rounding); returns their count."""
+    n = 0
+    for image_id, (boxes, scores, _, valid) in dets.items():
+        h, w = sizes[image_id]
+        b, sc = boxes[valid.astype(bool)], scores[valid.astype(bool)]
+        lim = np.array([w, h, w, h]) + 0.01
+        if not (np.isfinite(b).all() and np.isfinite(sc).all() and (b >= -0.01).all()
+                and (b <= lim).all() and (b[:, 2:] >= b[:, :2]).all()):
+            raise AssertionError(f"{name} image {image_id}: a detection is not finite or not "
+                                 f"inside its {h}x{w} image")
+        n += len(sc)
+    if not n:
+        raise AssertionError(f"{name}: no detection on any image")
+    return n
+
+
+def _same_dets(name: str, a: tuple, b: tuple) -> None:
+    if not all(x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: the detections with the kernels differ from the all-plain "
+                             "path's")
+
+
+def phase_pipeline(smi: str) -> dict:
+    """The pipeline through its hand-offs, then TTA, at full width on a
+    synthetic VOC tree: the stage-1 dump (train_net_stage1 --eval-only with
+    detection_result_test.yaml on a checkpoint from the seeded
+    initializer), PGF and the multi-label tool (each ``python -m`` in its
+    own process), stage 2 (voc_baseline) trained 2 steps on their labels,
+    the FRCNN TTA (voc07_tta_test, 16 views an image) on its checkpoint and
+    the WSL TTA (voc07_oicr_plus, TEST.AUG's 18 views) on the stage-1 one,
+    AVG over the test images and UNION on one; each TTA strategy's first
+    image against the all-plain path. Returns the launches of the path."""
+    import subprocess
+
+    from sos_wsod_torch.data.catalog import DatasetCatalog
+    from sos_wsod_torch.data.datasets.voc import register_all_voc, register_pascal_voc
+    from sos_wsod_torch.engine.defaults import default_argument_parser
+    from sos_wsod_torch.engine.synthetic import (
+        load_config, write_dataseed, write_stage1_checkpoint, write_synthetic_voc)
+    from sos_wsod_torch.kernels import roi_pool as pool
+    from sos_wsod_torch.tools import train_net_stage1 as stage1_cli
+    from sos_wsod_torch.tools import train_net_test_tta as tta_cli
+    from sos_wsod_torch.tools import train_net_unbias as stage2_cli
+
+    cfg1 = load_config(str(DETECTION_CONFIG), PIPELINE_STAGE1_OPTS)
+    cfg2 = load_config(str(STAGE2_CONFIG), PIPELINE_STAGE2_CUT + PIPELINE_STAGE2_OPTS)
+    tta_cfg = load_config(str(TTA_CONFIG), PIPELINE_STAGE2_OPTS)
+    wsl_cfg = load_config(str(CONFIG), PIPELINE_STAGE1_OPTS)
+    b, max_iter = cfg2.SOLVER.IMG_PER_BATCH_LABEL, cfg2.SOLVER.MAX_ITER
+    n_frcnn_views = len(tta_cfg.TEST.AUG.MIN_SIZES) * (1 + tta_cfg.TEST.AUG.FLIP)
+    n_wsl_views = len(wsl_cfg.TEST.AUG.MIN_SIZES) * (1 + wsl_cfg.TEST.AUG.FLIP)
+    ProbeTrainer = _probe_trainer(stage2_cli.UBTeacherTrainer, _align_nms_counts, max_iter)
+    saved_trainer = stage2_cli.UBTeacherTrainer
+    root = logging.getLogger()
+    saved = (root.handlers[:], root.level)
+    cwd = os.getcwd()
+
+    def counts():
+        return pool.launches, _nms_launches(), *_align_nms_counts()[:2]
+
+    def delta(after, before):
+        return tuple(a - c for a, c in zip(after, before))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ids = write_synthetic_voc(tmp, CLI_SPLITS, RAW_HW, NUM_PROPOSALS, SEED)
+        os.chdir(tmp)
+        probe = None
+        try:
+            write_stage1_checkpoint("output_stage1", cfg1, SEED)
+            # a one-image test set (the first test image) for UNION and the
+            # all-plain comparisons
+            pathlib.Path("datasets/VOC2007/ImageSets/Main/tta1.txt").write_text(
+                ids["test"][0] + "\n")
+            register_all_voc()
+            if "voc_2007_tta1" not in DatasetCatalog:
+                register_pascal_voc("voc_2007_tta1", "datasets/VOC2007", "tta1", "2007")
+            one = ["DATASETS.TEST", "('voc_2007_tta1',)"]
+            one_props = ["DATASETS.PROPOSAL_FILES_TEST",
+                         "('datasets/proposals/mcg_voc_2007_test_d2.pkl',)"]
+
+            pool.launches = 0
+            _reset_align_nms_counts()
+            path = {}
+            # (1) the stage-1 detection dump over train, val and test
+            t0 = time.perf_counter()
+            stage1_cli.main(default_argument_parser().parse_args(
+                ["--config-file", str(DETECTION_CONFIG), "--eval-only", *PIPELINE_STAGE1_OPTS,
+                 "OUTPUT_DIR", "output_stage1"]))
+            torch.cuda.synchronize()
+            secs_dump = time.perf_counter() - t0
+            path["dump"] = counts()
+            det_dir = pathlib.Path("datasets/VOC2007/detection_results")
+            dumped = {split: json.loads((det_dir / f"oicr_plus_voc_2007_{split}.json").read_text())
+                      for split, _ in CLI_SPLITS}
+            n_images = sum(n for _, n in CLI_SPLITS)
+            if path["dump"] != (n_images, n_images, 0, 0):
+                raise AssertionError(f"stage-1 dump launches (A fwd, C, D, D bwd) "
+                                     f"{path['dump']}, expected 1 A fwd and 1 C for each of "
+                                     f"{n_images} images")
+            for split, recs in dumped.items():
+                if {r["image_id"] for r in recs} != {int(i) for i in ids[split]}:
+                    raise AssertionError(f"stage-1 dump of {split}: an image without a detection")
+            log("pipeline", f"stage-1 dump (train_net_stage1 --eval-only, "
+                            f"{DETECTION_CONFIG.name}) of {dict(CLI_SPLITS)} images in "
+                            f"{secs_dump:.1f} s: detections "
+                            f"{ {k: len(v) for k, v in dumped.items()} }; launches A fwd, C "
+                            f"{path['dump'][:2]} (1 and 1 an image)")
+
+            # (2) PGF, then the multi-label tool, each in its own process
+            env = dict(os.environ, PYTHONPATH=str(ROOT))
+            outs = []
+            for argv in (["-m", "sos_wsod_torch.tools.pgf", "--det-path", str(det_dir),
+                          "--save-path", "datasets/VOC2007/pseudo_labels",
+                          "--data-root", "datasets"],
+                         ["-m", "sos_wsod_torch.tools.add_multi_label"]):
+                proc = subprocess.run([sys.executable, *argv], env=env, capture_output=True,
+                                      text=True, timeout=120)
+                if proc.returncode:
+                    raise RuntimeError(f"{' '.join(argv[:2])} exited {proc.returncode}: "
+                                       f"{proc.stderr[-2000:]}")
+                outs.append(proc.stdout)
+            n_boxes = {}
+            for split in ("train", "val"):
+                pgt = json.loads(pathlib.Path(
+                    f"datasets/VOC2007/pseudo_labels/oicr_plus_voc_2007_{split}.json").read_text())
+                keys = {str(int(i)) for i in ids[split]}
+                if not keys <= set(pgt) or set(pgt.get("multi_label", {})) != keys:
+                    raise AssertionError(f"pseudo labels of {split}: keys {sorted(pgt)}, "
+                                         f"multi_label {sorted(pgt.get('multi_label', {}))}")
+                n_boxes[split] = [len(pgt[k]) for k in sorted(keys, key=int)]
+            counts_lines = [line for out in outs for line in out.splitlines() if "length" in line]
+            log("pipeline", "python -m sos_wsod_torch.tools.pgf, then add_multi_label: " +
+                "; ".join(counts_lines) + f"; pseudo boxes an image {n_boxes}")
+
+            # (3) stage 2 on the PGF labels: the dataseed over the images
+            # that kept a box, then 2 steps
+            n_train = sum(1 for v in n_boxes.values() for n in v if n)
+            write_dataseed(tmp, cfg2, n_train)
+            if int(cfg2.DATALOADER.SUP_PERCENT / 100 * n_train) < 1 or \
+                    int(cfg2.DATALOADER.SUP_PERCENT / 100 * n_train) == n_train:
+                raise AssertionError(f"{n_train} train+val images kept a pseudo box: too few "
+                                     f"for a labeled and an unlabeled set")
+            stage2_cli.UBTeacherTrainer = ProbeTrainer
+            t0 = time.perf_counter()
+            stage2_cli.main(default_argument_parser().parse_args(
+                ["--config-file", str(STAGE2_CONFIG), *PIPELINE_STAGE2_CUT,
+                 *PIPELINE_STAGE2_OPTS, "OUTPUT_DIR", "output_stage2"]))
+            torch.cuda.synchronize()
+            secs_train = time.perf_counter() - t0
+            before = counts()
+            path["stage 2"] = delta(before, path["dump"])
+            (run,) = ProbeTrainer.runs
+            for step, sc in enumerate(run.step_scalars):
+                if not all(np.isfinite(sc[k]) for k in ("loss_cls", "loss_box_reg",
+                                                          "loss_rpn_cls", "loss_rpn_loc")):
+                    raise AssertionError(f"stage 2 on the PGF labels, step {step}: {sc}")
+            if run.step_launches != [(b, b, b)] * max_iter:
+                raise AssertionError(f"stage 2 launches (D, D bwd, C) per step "
+                                     f"{run.step_launches}, expected {(b, b, b)} each")
+            state = torch.load("output_stage2/model_final.pth", map_location="cpu",
+                               weights_only=True)
+            if state["iter"] != max_iter or "model" not in state:
+                raise AssertionError(f"stage-2 checkpoint: {sorted(state)} at {state.get('iter')}")
+            log("pipeline", f"train_net_unbias ({STAGE2_CONFIG.name}, cut "
+                            f"{PIPELINE_STAGE2_CUT}) on the PGF labels, dataseed "
+                            f"engine/synthetic.write_dataseed over the {n_train} images with a "
+                            f"pseudo box (splits --base-only writes another percent than the "
+                            f"config's {cfg2.DATALOADER.SUP_PERCENT}): {max_iter} steps + eval in "
+                            f"{secs_train:.1f} s, step ms {[round(t, 1) for t in run.step_ms]}, "
+                            f"total_loss "
+                            f"{[round(sc['total_loss'], 4) for sc in run.step_scalars]}; "
+                            f"launches D, D bwd, C per step {run.step_launches}")
+
+            # (4) FRCNN TTA on the stage-2 checkpoint, the 4 test images
+            def tta(config, *flags):
+                args = tta_cli.argument_parser().parse_args(
+                    ["--config-file", str(config), *flags])
+                return tta_cli.main(args)
+
+            sizes = {d["image_id"]: (d["height"], d["width"])
+                     for d in DatasetCatalog.get("voc_2007_test")}
+            torch.cuda.reset_peak_memory_stats()
+            probe = _ImageProbe(tta_cli)
+            t0 = time.perf_counter()
+            res_frcnn = tta(TTA_CONFIG, "--ckpt", os.path.abspath("output_stage2/model_final.pth"),
+                            *PIPELINE_STAGE2_OPTS, "OUTPUT_DIR", "output_tta")
+            secs_frcnn = time.perf_counter() - t0
+            probe.close()
+            frcnn = probe
+            path["FRCNN TTA"] = delta(counts(), before)
+            want = (0, 2 * n_frcnn_views, n_frcnn_views)
+            if frcnn.launches != [want] * len(sizes):
+                raise AssertionError(f"FRCNN TTA launches (A fwd, C, D) per image "
+                                     f"{frcnn.launches}, expected {want}")
+            n_frcnn = _check_tta_dets("FRCNN TTA", frcnn.dets, sizes)
+
+            # (5) WSL TTA on the stage-1 checkpoint: AVG over the 4 test
+            # images, UNION on the first
+            before = counts()
+            probe = _ImageProbe(tta_cli)
+            t0 = time.perf_counter()
+            res_avg = tta(CONFIG, "--ckpt", os.path.abspath("output_stage1/model_final.pth"),
+                          *PIPELINE_STAGE1_OPTS, "OUTPUT_DIR", "output_wsl")
+            secs_avg = time.perf_counter() - t0
+            probe.close()
+            avg = probe
+            probe = _ImageProbe(tta_cli)
+            res_union = tta(CONFIG, "--strategy", "union", "--ckpt",
+                            os.path.abspath("output_stage1/model_final.pth"),
+                            *PIPELINE_STAGE1_OPTS, *one, *one_props, "OUTPUT_DIR", "output_wsl")
+            probe.close()
+            union = probe
+            path["WSL TTA"] = delta(counts(), before)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if avg.launches != [(n_wsl_views, 1, 0)] * len(sizes) or \
+                    union.launches != [(n_wsl_views, n_wsl_views, 0)]:
+                raise AssertionError(f"WSL TTA launches (A fwd, C, D) per image: AVG "
+                                     f"{avg.launches}, UNION {union.launches}; expected "
+                                     f"{(n_wsl_views, 1, 0)} and {(n_wsl_views, n_wsl_views, 0)}")
+            n_avg = _check_tta_dets("WSL TTA AVG", avg.dets, sizes)
+            n_union = _check_tta_dets("WSL TTA UNION", union.dets, sizes)
+            launches = {k: sum(p[i] for p in path.values()) for i, k in enumerate(
+                ("roi_pool_fwd", "nms", "roi_align_fwd", "roi_align_bwd"))}
+
+            # the first test image of each strategy through the all-plain path
+            first = next(iter(frcnn.dets))
+            with _plain_versions(roi_align=True):
+                probe = _ImageProbe(tta_cli)
+                t0 = time.perf_counter()
+                tta(TTA_CONFIG, "--ckpt", os.path.abspath("output_stage2/model_final.pth"),
+                    *PIPELINE_STAGE2_OPTS, *one, "OUTPUT_DIR", "output_tta")
+                secs_plain_frcnn = time.perf_counter() - t0
+                probe.close()
+            _same_dets("FRCNN TTA", frcnn.dets[first], probe.dets[first])
+            with _plain_versions(roi_pool=True):
+                probe = _ImageProbe(tta_cli)
+                t0 = time.perf_counter()
+                tta(CONFIG, "--ckpt", os.path.abspath("output_stage1/model_final.pth"),
+                    *PIPELINE_STAGE1_OPTS, *one, *one_props, "OUTPUT_DIR", "output_wsl")
+                secs_plain_avg = time.perf_counter() - t0
+                probe.close()
+            _same_dets("WSL TTA AVG", avg.dets[first], probe.dets[first])
+            probe = None
+
+            # one profiled FRCNN TTA image: host and device ms of each range
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tta(TTA_CONFIG, "--ckpt", os.path.abspath("output_stage2/model_final.pth"),
+                    *PIPELINE_STAGE2_OPTS, *one, "OUTPUT_DIR", "output_tta")
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            if probe is not None:
+                probe.close()
+            stage2_cli.UBTeacherTrainer = saved_trainer
+            os.chdir(cwd)
+            for h in root.handlers:
+                if h not in saved[0]:
+                    h.close()
+            root.handlers[:], root.level = saved
+
+    def warm(ms):
+        return 1e3 / statistics.median(ms[1:] or ms)
+
+    log("pipeline", f"FRCNN TTA ({TTA_CONFIG.name}, {n_frcnn_views} views: "
+                    f"{list(tta_cfg.TEST.AUG.MIN_SIZES)} x flip, max {tta_cfg.TEST.AUG.MAX_SIZE}) "
+                    f"of {len(sizes)} test images in {secs_frcnn:.1f} s: ms an image "
+                    f"{[round(t, 1) for t in frcnn.ms]}, warm {warm(frcnn.ms):.2f} img/s; "
+                    f"launches A fwd, C, D an image {frcnn.launches}; {n_frcnn} detections, "
+                    f"AP50 {res_frcnn['voc_2007_test']['bbox']['AP50']:.3f}")
+    log("pipeline", f"WSL TTA ({CONFIG.name}, {n_wsl_views} views: "
+                    f"{list(wsl_cfg.TEST.AUG.MIN_SIZES)} x flip) AVG of {len(sizes)} images in "
+                    f"{secs_avg:.1f} s: ms an image {[round(t, 1) for t in avg.ms]}, warm "
+                    f"{warm(avg.ms):.2f} img/s, launches {avg.launches}, {n_avg} detections, "
+                    f"AP50 {res_avg['voc_2007_test']['bbox']['AP50']:.3f}; UNION of image "
+                    f"{first}: {union.ms[0]:.1f} ms, launches {union.launches}, {n_union} "
+                    f"detections, AP50 {res_union['voc_2007_tta1']['bbox']['AP50']:.3f}; peak "
+                    f"memory of the TTA runs {peak_gb:.2f} GB on {smi}")
+    log("pipeline", f"image {first}: the FRCNN TTA's detections with the kernels == the "
+                    f"all-plain path's (plain NMS and ROIAlign, {secs_plain_frcnn:.1f} s), the "
+                    f"WSL AVG's == the all-plain path's (plain NMS and ROIPool, "
+                    f"{secs_plain_avg:.1f} s)")
+    host, dev, other = _range_ms(prof, STAGE2_RANGES)
+    busy = sum(dev.values()) + other
+    log("pipeline", f"one profiled FRCNN TTA image ({n_frcnn_views} views), range host/device "
+                    f"ms: " + ", ".join(f"{n} {host[n]:.2f}/{dev[n]:.2f}" for n in STAGE2_RANGES) +
+        f", device outside the ranges {other:.2f}; busy {busy:.2f} of {wall_ms:.2f} ms wall "
+        f"({100 * busy / wall_ms:.1f}%, profiler on)")
+    log("pipeline", f"launches A fwd, C, D, D bwd by step {path}")
+    return launches
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging its wall seconds."""
     t0 = time.perf_counter()
@@ -1465,10 +1836,12 @@ def main() -> int:
     stage2_launches = timed("9-10 stage-2 inference and CLI", phase_stage2, device, smi)
     stage2_train_launches = timed("11 stage-2 training", phase_stage2_train, smi)
     stage3_train_launches = timed("12 stage-3 split and training", phase_stage3_train, smi)
+    pipeline_launches = timed("13 pipeline and TTA", phase_pipeline, smi)
     paths = {"stage-1 inference": infer_launches, "stage-1 training": train_launches,
              "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches,
              "stage-2 training": stage2_train_launches,
-             "stage-3 split and training": stage3_train_launches}
+             "stage-3 split and training": stage3_train_launches,
+             "pipeline and TTA": pipeline_launches}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd",
                           "roi_align_bwd")}

@@ -221,7 +221,11 @@ def get_cfg() -> CfgNode:
             "REFINE_SCALE_ON": False,
             "CLIP_GRADIENTS": {"ENABLED": False, "CLIP_TYPE": "value", "CLIP_VALUE": 1.0},
         },
-        "TEST": {"EVAL_PERIOD": 0, "EXPECTED_RESULTS": [], "DETECTIONS_PER_IMAGE": 100},
+        "TEST": {"EVAL_PERIOD": 0, "EXPECTED_RESULTS": [], "DETECTIONS_PER_IMAGE": 100,
+                 # test-time augmentation (tools/train_net_test_tta.py)
+                 "AUG": {"ENABLED": False,
+                         "MIN_SIZES": (400, 500, 600, 700, 800, 900, 1000, 1100, 1200),
+                         "MAX_SIZE": 4000, "FLIP": True}},
         "WSL": {"ITER_SIZE": 1, "MEAN_LOSS": True, "REFINE_NUM": 3,
                 "REFINE_REG": [False, False, False], "REFINE_MIST": False,
                 "MIST_P": 0.10, "MIST_THRE": 0.05, "MIST_TYPE": "nms"},

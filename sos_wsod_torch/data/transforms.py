@@ -8,6 +8,9 @@ semantics):
   - HFlip: x' = width - x (no -1, the d2 convention);
   - crop "relative_range": a fraction ~ U[size, 1] per axis,
     int(d * frac + 0.5), a random top-left; boxes translate by (-x0, -y0).
+Each transform's ``inverse_box`` maps boxes back to its input, in float64
+(the no-op returns them as they are); test-time augmentation maps each
+view's detections back with it.
 All randomness comes from an explicit ``np.random.RandomState``, drawn in
 the JAX package's order, so both packages map an image identically.
 """
@@ -33,6 +36,9 @@ class NoOpTransform:
     def apply_box(self, boxes: np.ndarray) -> np.ndarray:
         return boxes
 
+    def inverse_box(self, boxes: np.ndarray) -> np.ndarray:
+        return boxes
+
 
 class ResizeTransform:
     def __init__(self, h: int, w: int, new_h: int, new_w: int):
@@ -54,6 +60,12 @@ class ResizeTransform:
         out = boxes.astype(np.float32)
         out[:, 0::2] *= self.new_w * 1.0 / self.w
         out[:, 1::2] *= self.new_h * 1.0 / self.h
+        return out
+
+    def inverse_box(self, boxes: np.ndarray) -> np.ndarray:
+        out = np.asarray(boxes, np.float64).copy()
+        out[:, 0::2] *= self.w * 1.0 / self.new_w
+        out[:, 1::2] *= self.h * 1.0 / self.new_h
         return out
 
 
@@ -91,6 +103,12 @@ class HFlipTransform:
         out[:, 2] = self.w - boxes[:, 0]
         return out
 
+    def inverse_box(self, boxes: np.ndarray) -> np.ndarray:
+        out = np.asarray(boxes, np.float64).copy()
+        out[:, 0] = self.w - boxes[:, 2]
+        out[:, 2] = self.w - boxes[:, 0]
+        return out
+
 
 class CropTransform:
     def __init__(self, x0: int, y0: int, ch: int, cw: int):
@@ -107,6 +125,12 @@ class CropTransform:
         out = boxes.astype(np.float32)
         out[:, 0::2] -= self.x0
         out[:, 1::2] -= self.y0
+        return out
+
+    def inverse_box(self, boxes: np.ndarray) -> np.ndarray:
+        out = np.asarray(boxes, np.float64).copy()
+        out[:, 0::2] += self.x0
+        out[:, 1::2] += self.y0
         return out
 
 
@@ -126,6 +150,11 @@ class TransformList:
     def apply_box(self, boxes: np.ndarray) -> np.ndarray:
         for t in self.transforms:
             boxes = t.apply_box(boxes)
+        return boxes
+
+    def inverse_box(self, boxes: np.ndarray) -> np.ndarray:
+        for t in reversed(self.transforms):
+            boxes = t.inverse_box(boxes)
         return boxes
 
 

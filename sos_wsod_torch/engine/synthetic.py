@@ -2,7 +2,7 @@
 and a synthetic VOC tree on disk, for runs without a checkpoint or a dataset
 (the GPU smoke run, the inference profile, the CLIs and the tests): the
 stage-1 VGG16 OICR+ model under d2-WSL names, and the stage-2/3 R50-FPN
-Faster R-CNN under detectron2's names, with a stage-2 checkpoint writer, and
+Faster R-CNN under detectron2's names, with a checkpoint writer for each, and
 what stage-2 training reads besides the VOC tree: the pseudo-label JSON of
 its splits (``write_pseudo_labels``) and the dataseed file
 (``write_dataseed``).
@@ -149,6 +149,26 @@ def build_synthetic_model(cfg, device, seed: int) -> MultiInputRCNN:
     blobs = random_d2_wsl_blobs(seed, cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.WSL.REFINE_NUM,
                                 cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)
     return load_weights(model, state_dict_from_d2_wsl(blobs), device)
+
+
+def write_stage1_checkpoint(output_dir: str, cfg, seed: int) -> str:
+    """A stage-1 checkpoint ``model_final`` in ``output_dir`` (under "model",
+    at "iter" 0; ``last_checkpoint`` names it) of the model of
+    ``build_synthetic_model(cfg, _, seed)`` with each refinement branch's
+    class rows of cls_score (all but the last, the background's) set to
+    its first row. The classes then tie in each proposal, and each image's
+    top detections cover every class: with independent random rows a few
+    classes take all of them in every image, and PGF's class filter, which
+    keeps only an image's labelled classes, is left with nothing to hand
+    stage 2. Returns the file's path."""
+    blobs = random_d2_wsl_blobs(seed, cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.WSL.REFINE_NUM,
+                                cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)
+    for k in range(cfg.WSL.REFINE_NUM):
+        w = blobs[f"roi_heads.box_refinery_{k}.cls_score.weight"]
+        w[:-1] = w[0]
+    ckpt = Checkpointer(output_dir)
+    ckpt.save("model_final", {"model": state_dict_from_d2_wsl(blobs), "iter": 0})
+    return ckpt.path("model_final")
 
 
 def build_synthetic_slice(config_file: str, device, num_images: int,

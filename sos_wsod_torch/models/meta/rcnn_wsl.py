@@ -109,6 +109,20 @@ class MultiInputRCNN(nn.Module):
         return self.roi_heads.losses(pooled, batch["boxes"], batch["prop_valid"],
                                      batch["gt_classes_oh"], generator)
 
+    def predict_scores(self, batch: Dict[str, torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``predict`` up to the box head: (all_scores (P, K+1), all_boxes
+        (P, K*4)), without the NMS (test-time augmentation's AVG merges
+        these over the views). Profiler ranges ``backbone``, ``roi_pool``
+        and ``box_head``."""
+        with record_function("backbone"):
+            feat = self.backbone_features(batch["image"], batch["valid_hw"])
+        with record_function("roi_pool"):
+            obn = batch["objectness"].float() + 1.0
+            pooled = self._pool(feat, batch["boxes"], batch["prop_valid"], obn)
+        with record_function("box_head"):
+            return self.roi_heads.predict(pooled, batch["boxes"])
+
     def predict(self, batch: Dict[str, torch.Tensor]) -> Tuple[Detections, torch.Tensor, torch.Tensor]:
         """Single-image inference. batch:
           image: (H, W, 3) BGR raw (padded); valid_hw: (2,) int
@@ -117,13 +131,7 @@ class MultiInputRCNN(nn.Module):
         Returns (Detections, all_scores (P, K+1), all_boxes (P, K*4)).
         Each layer runs in a profiler range of its name (``backbone``,
         ``roi_pool``, ``box_head``, ``nms_topk``)."""
-        with record_function("backbone"):
-            feat = self.backbone_features(batch["image"], batch["valid_hw"])
-        with record_function("roi_pool"):
-            obn = batch["objectness"].float() + 1.0
-            pooled = self._pool(feat, batch["boxes"], batch["prop_valid"], obn)
-        with record_function("box_head"):
-            scores, pred_boxes = self.roi_heads.predict(pooled, batch["boxes"])
+        scores, pred_boxes = self.predict_scores(batch)
         with record_function("nms_topk"):
             det = fast_rcnn_inference_single(
                 pred_boxes, scores, batch["prop_valid"], batch["image_hw"],

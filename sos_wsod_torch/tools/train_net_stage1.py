@@ -4,8 +4,9 @@ Counterpart of ``tools/train_net_stage1.py`` (the reference's
 train_net_multi.py): setup -> model -> Stage1Trainer with its hooks ->
 resume -> train; ``--eval-only`` runs the VOC evaluator over each of
 DATASETS.TEST, and with WSODEVAL.SAVE_DETECTION_RESULT writes the
-detection-result JSON that stage 2 reads. The VOC sets are registered under
-``./datasets`` (``register_all_voc``). As in the JAX CLI, MODEL.WEIGHTS is
+detection-result JSON that stage 2 reads. The VOC sets and the extra WSL
+sets are registered under ``./datasets`` (``register_all_voc``,
+``register_all_extra``). As in the JAX CLI, MODEL.WEIGHTS is
 not read: training starts from the model's initializer, seeded by SEED.
 
     python -m sos_wsod_torch.tools.train_net_stage1 \\
@@ -22,6 +23,7 @@ import torch
 from ..config import get_cfg
 from ..data.build import build_stage1_test_loader, build_stage1_train_loader, rank_and_world
 from ..data.catalog import DatasetCatalog, MetadataCatalog
+from ..data.datasets.builtin_extra import register_all_extra
 from ..data.datasets.voc import register_all_voc
 from ..engine.checkpoint import Checkpointer, PeriodicCheckpointer
 from ..engine.defaults import (
@@ -63,6 +65,7 @@ def do_test(cfg, model) -> OrderedDict:
     """Each of DATASETS.TEST through ``run_stage1_inference`` into a VOC
     evaluator over its XML ground truth; checks TEST.EXPECTED_RESULTS."""
     register_all_voc()
+    register_all_extra()
     device = next(model.parameters()).device
     results = OrderedDict()
     for name in cfg.DATASETS.TEST:
@@ -86,6 +89,7 @@ def main(args):
     the results by dataset)."""
     cfg = setup(args)
     register_all_voc()
+    register_all_extra()
     if cfg.MODEL.META_ARCHITECTURE != "MultiInputRCNN":
         raise NotImplementedError(
             f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: only the multi-input "

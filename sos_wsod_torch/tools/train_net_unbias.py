@@ -40,6 +40,7 @@ import torch
 from ..config import get_cfg
 from ..data.build import build_stage1_test_loader
 from ..data.catalog import DatasetCatalog, MetadataCatalog
+from ..data.datasets.builtin_extra import register_all_extra
 from ..data.datasets.voc import register_all_voc
 from ..data.mapper_twocrop import build_semisup_loader_from_cfg
 from ..engine.checkpoint import Checkpointer, PeriodicCheckpointer
@@ -71,6 +72,7 @@ def do_test(cfg, model) -> OrderedDict:
     into a VOC evaluator over its XML ground truth; checks
     TEST.EXPECTED_RESULTS."""
     register_all_voc()
+    register_all_extra()
     device = next(model.parameters()).device
     results = OrderedDict()
     for name in cfg.DATASETS.TEST:
@@ -94,6 +96,7 @@ def main(args):
     the results by dataset)."""
     cfg = setup(args)
     register_all_voc()
+    register_all_extra()
     device = torch.device(cfg.MODEL.DEVICE)
     checkpointer = Checkpointer(cfg.OUTPUT_DIR)
 

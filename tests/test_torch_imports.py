@@ -123,6 +123,40 @@ run3 = repeat_train.train_stage3_once("cpu", 2, s3_opts, (60, 80), 8)
 assert run3["loss_cls_pseudo"][1] is not None and run3["num_pseudo_boxes"][1] is not None, run3
 assert {"sos_wsod_torch.tools.splits", "sos_wsod_torch.tools.convert_checkpoints"} <= set(names)
 
+# the hand-offs (the path of chip_smoke's phase 13): the stage-1 dump of
+# train, val and test, PGF and the multi-label tool into the pseudo labels
+# that the _wsl loader reads, then the stage-1 TTA on the same checkpoint
+from sos_wsod_torch.data.catalog import DatasetCatalog
+from sos_wsod_torch.engine.synthetic import write_stage1_checkpoint
+from sos_wsod_torch.tools import add_multi_label, pgf, train_net_test_tta
+assert {"sos_wsod_torch.data.datasets.coco", "sos_wsod_torch.data.datasets.builtin_extra",
+        "sos_wsod_torch.evaluation.coco_eval", "sos_wsod_torch.models.tta",
+        "sos_wsod_torch.tools.pgt_to_json", "sos_wsod_torch.tools.proposals_convert",
+        "sos_wsod_torch.tools.filter_metrics", "sos_wsod_torch.tools.visualize"} <= set(names)
+with tempfile.TemporaryDirectory() as tmp:
+    ids = write_synthetic_voc(tmp, (("train", 2), ("val", 1), ("test", 1)), (50, 70), 30, 0)
+    os.chdir(tmp)
+    s1_opts = ["MODEL.DEVICE", "cpu", "MODEL.ROI_BOX_HEAD.DAN_DIM", "[16, 16]",
+               "TPU.COMPUTE_DTYPE", "float32", "INPUT.MIN_SIZE_TEST", "48",
+               "TPU.PROPOSAL_CAPACITY", "32", "TEST.AUG.MIN_SIZES", "(40, 48)"]
+    s1_cfg = load_config(str(smoke["DETECTION_CONFIG"]), s1_opts)
+    write_stage1_checkpoint("out_s1", s1_cfg, 0)
+    train_net_stage1.main(default_argument_parser().parse_args(
+        ["--config-file", str(smoke["DETECTION_CONFIG"]), "--eval-only", *s1_opts,
+         "OUTPUT_DIR", "out_s1"]))
+    pgf.main(["--det-path", "datasets/VOC2007/detection_results",
+              "--save-path", "datasets/VOC2007/pseudo_labels"])
+    add_multi_label.main([])
+    for split in ("train", "val"):
+        dicts = DatasetCatalog.get(f"voc_2007_{split}_wsl")
+        assert [d["image_id"] for d in dicts] == ids[split], dicts
+        assert all(d["annotations"] and "multi_label" in d for d in dicts), dicts
+    res = train_net_test_tta.main(train_net_test_tta.argument_parser().parse_args(
+        ["--config-file", str(smoke["CONFIG"]), "--ckpt", os.path.abspath("out_s1/model_final"),
+         *s1_opts, "OUTPUT_DIR", "out_tta"]))
+    assert "AP50" in res["voc_2007_test"]["bbox"], res
+    os.chdir(cwd)
+
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad
@@ -140,7 +174,9 @@ def test_port_and_chip_smoke_import_without_jax():
     synthetic VOC tree (one step, then --eval-only's JSON), one stage-2
     predict and the stage-2 CLI's --eval-only on a stage-2 checkpoint, and
     stage 3: the split tool on a stage-2 checkpoint, then a burn-in step and
-    a semi-supervised step on its dataseed."""
+    a semi-supervised step on its dataseed; and the hand-offs: the stage-1
+    dump of train, val and test, PGF and the multi-label tool, the _wsl
+    loader on their output, and the stage-1 TTA CLI."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
