@@ -142,7 +142,25 @@ Phases, one line each; any failure raises and the script exits non-zero:
      first image, 18 and 18); the detections finite and inside the image,
      AP50; the first image of each strategy against the all-plain path
      (plain ROIAlign / ROIPool and NMS), equal; warm TTA img/s, peak memory
-     and, over one profiled FRCNN TTA image, host and device ms by range.
+     and, over one profiled FRCNN TTA image, host and device ms by range;
+ 14. data parallelism (sos_wsod_torch/engine/launch.py, parallel/comm.py,
+     DistributedDataParallel in the trainers), at full width: a process
+     group of one over NCCL in a spawned process, where repeat_train's 2
+     stage-1 and 2 stage-2 steps run under DDP, equal to the same runs in
+     this process with no group, losses and watched weights bit for bit;
+     then two gloo ranks sharing the one card (NCCL refuses two ranks on one
+     card), started by engine.launch.launch, running
+     sos_wsod_torch/tools/check_ddp.py:run_tasks: the stage-1 CLI
+     (SOLVER.IMS_PER_BATCH 2, 2 steps), a stage-1 step of 2 x 1 image with
+     dropout 0 against one process's step on the same 2 images (bit for bit,
+     else the largest difference and the tolerance it holds), 3 stage-1
+     steps with a checkpoint after the second and a second trainer resumed
+     from it, the split tool (its dataseed byte-identical to one process's),
+     the stage-2 CLI (2 + 2 images, 2 steps) and the stage-3 CLI (1 burn-in
+     and 2 semi-supervised steps); after every step the ranks' weights, the
+     teacher's too, bit-identical; each CLI's checkpoint written by rank 0
+     alone; prints each run's warm step time, seconds, peak memory and
+     launches a rank, labelled as two ranks sharing one card.
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the stage-1 inference throughput.
@@ -219,6 +237,17 @@ PIPELINE_STAGE2_CUT = ["SOLVER.IMG_PER_BATCH_LABEL", "2", "SOLVER.IMG_PER_BATCH_
                        "SOLVER.MAX_ITER", "2"]
 PIPELINE_STAGE1_OPTS = []
 PIPELINE_STAGE2_OPTS = []
+# data parallelism (phase 14): a process group of one over NCCL, then two
+# gloo ranks sharing the one card; the steps of each run; the overrides of
+# the stage-1 and the stage-2/3 runs (none on the card) and of repeat_train's
+# runs in the group of one ({} on the card: its full-width defaults)
+DDP_WORLD = 2
+DDP_WORLD1_BACKEND = "nccl"
+DDP_REPEAT_STEPS = 2
+DDP_STAGE1_OPTS = []
+DDP_STAGE23_OPTS = []
+DDP_REPEAT_STAGE1 = {}
+DDP_REPEAT_STAGE2 = {}
 
 
 def log(phase: str, msg: str) -> None:
@@ -1809,6 +1838,212 @@ def phase_pipeline(smi: str) -> dict:
     return launches
 
 
+def _ddp_tasks(tmp: str, seed_opts: list, n_train: int, specs: dict, numels: list,
+               device: str) -> list:
+    """Phase 14's tasks for the two gloo ranks (``check_ddp.run_tasks``), in
+    the tree ``tmp``."""
+    from sos_wsod_torch.tools import repeat_train
+
+    stage1 = ["--config-file", str(CONFIG), "SOLVER.IMS_PER_BATCH", str(DDP_WORLD),
+              "SOLVER.MAX_ITER", "2", "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0",
+              *DDP_STAGE1_OPTS,
+              "OUTPUT_DIR", "ddp_stage1"]
+    stage2 = ["--config-file", str(STAGE2_CONFIG), *STAGE2_TRAIN_CUT, "SOLVER.MAX_ITER", "2",
+              *DDP_STAGE23_OPTS, "OUTPUT_DIR", "ddp_stage2"]
+    stage3 = ["--config-file", str(STAGE3_CONFIG), *STAGE3_TRAIN_CUT, "SOLVER.MAX_ITER", "3",
+              *DDP_STAGE23_OPTS, *seed_opts, "OUTPUT_DIR", "ddp_stage3"]
+    split = ["--config", str(repeat_train.SPLIT_CONFIG), "--ckpt", "output_stage2/model_final",
+             "--save-path", "dataseed/split_world2.txt", "--k", str(n_train // 2),
+             *(str(o) for o in DDP_STAGE23_OPTS)]
+    return [{"name": "stage-1 CLI", "cli": "stage1", "argv": stage1},
+            {"name": "stage-1 step against one process", "cli": "steps",
+             "spec": specs["parity"], "out_dir": os.path.join(tmp, "parity")},
+            {"name": "stage-1 checkpoint and resume", "cli": "steps",
+             "spec": specs["resume"], "out_dir": os.path.join(tmp, "resume")},
+            {"name": "split", "cli": "splits", "argv": split},
+            {"name": "stage-2 CLI", "cli": "unbias", "argv": stage2},
+            {"name": "stage-3 CLI", "cli": "unbias", "argv": stage3},
+            {"name": "all-reduce", "cli": "allreduce", "numel": numels, "device": device}]
+
+
+def phase_data_parallel(smi: str, device: str = "cuda") -> dict:
+    """Data parallelism at full width. (1) A process group of one over NCCL
+    in a spawned process: repeat_train's stage-1 and stage-2 runs there,
+    under DistributedDataParallel, against the same runs in this process
+    with no group, bit for bit. (2) Two gloo ranks sharing the one card
+    (``engine.launch.launch(..., backend="gloo")``, one spawn for all of
+    it): the stage-1 CLI (SOLVER.IMS_PER_BATCH 2, 2 steps), a stage-1 step
+    of 2 x 1 image with dropout 0 against one process's step on the same 2
+    images, 3 stage-1 steps with a checkpoint after the second and a resumed
+    third, the split tool, the stage-2 CLI (2 + 2 images, 2 steps) and the
+    stage-3 CLI (1 burn-in and 2 semi-supervised steps), the ranks' weights
+    (the teacher's too) compared bit for bit after every step. Returns the
+    kernels' launches of the ranks."""
+    from sos_wsod_torch.engine.launch import launch, spawn
+    from sos_wsod_torch.engine.synthetic import build_synthetic_model, load_config, write_dataseed
+    from sos_wsod_torch.models.meta.rcnn import GeneralizedRCNN
+    from sos_wsod_torch.tools import check_ddp, repeat_train
+
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def count(report):
+        for k, v in report.items():
+            launches[k] += v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (1) a group of one over NCCL
+        w1 = os.path.join(tmp, "world1")
+        os.makedirs(w1)
+        t0 = time.perf_counter()
+        spawn(check_ddp.repeat_world1, 1, args=(w1, DDP_REPEAT_STEPS, device, DDP_REPEAT_STAGE1,
+                                                DDP_REPEAT_STAGE2),
+              backend=DDP_WORLD1_BACKEND, device=device)
+        (child,) = check_ddp.load_reports(w1, 1)
+        secs_child = time.perf_counter() - t0
+        count(child["launches"])
+        dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+        plain = {"stage1": repeat_train.train_once(dev, DDP_REPEAT_STEPS, **DDP_REPEAT_STAGE1),
+                 "stage2": repeat_train.train_stage2_once(dev, DDP_REPEAT_STEPS,
+                                                          **DDP_REPEAT_STAGE2)}
+        for stage in ("stage1", "stage2"):
+            a, b = plain[stage], child[stage]
+            keys = [k for k in a if k not in ("weights", "ddp")]
+            same_w = all(torch.equal(a["weights"][n].cpu(), b["weights"][n].cpu())
+                         for n in a["weights"])
+            if a["ddp"] or not b["ddp"] or any(a[k] != b[k] for k in keys) or not same_w:
+                raise AssertionError(f"{stage}: the group of one ({child['backend']}, DDP "
+                                     f"{b['ddp']}) against no group: losses "
+                                     f"{[(k, a[k], b[k]) for k in keys]}, weights same {same_w}")
+        log("ddp", f"a group of one over {child['backend']} in a spawned process "
+                   f"({secs_child:.1f} s): repeat_train's {DDP_REPEAT_STEPS} stage-1 and "
+                   f"{DDP_REPEAT_STEPS} stage-2 steps under DistributedDataParallel equal the "
+                   f"runs without a group bit for bit (losses "
+                   f"{', '.join(k for k in plain['stage2'] if k not in ('weights', 'ddp'))}; "
+                   f"watched weights {len(plain['stage1']['weights'])} + "
+                   f"{len(plain['stage2']['weights'])}); launches {child['launches']}")
+
+        # (2) two gloo ranks on the one card
+        t0 = time.perf_counter()
+        seed_opts = repeat_train.write_stage3_inputs(tmp, DDP_STAGE23_OPTS, RAW_HW, NUM_PROPOSALS)
+        n_train = sum(n for split, n in repeat_train.STAGE2_SPLITS if split != "test")
+        write_dataseed(tmp, load_config(str(STAGE2_CONFIG), DDP_STAGE23_OPTS), n_train)
+        cfg1 = load_config(str(CONFIG), ["SOLVER.IMS_PER_BATCH", DDP_WORLD, *DDP_STAGE1_OPTS])
+        model1 = build_synthetic_model(cfg1, dev, SEED)
+        state = {k: v.cpu() for k, v in model1.state_dict().items()}
+        # the trained weights, whose gradients DDP all-reduces: stage 1, stages 2-3
+        model2 = GeneralizedRCNN.from_cfg(load_config(str(STAGE2_CONFIG), DDP_STAGE23_OPTS),
+                                          device="meta")
+        numels = [sum(p.numel() for p in m.parameters() if p.requires_grad)
+                  for m in (model1, model2)]
+        del model1, model2
+        base = {"kind": "stage1", "config": str(CONFIG),
+                "opts": ["SOLVER.IMS_PER_BATCH", DDP_WORLD, *DDP_STAGE1_OPTS], "model": state}
+        specs = {"parity": os.path.join(tmp, "parity.pt"), "resume": os.path.join(tmp, "resume.pt")}
+        synthetic = {"raw_hw": RAW_HW, "num_proposals": NUM_PROPOSALS, "seed": SEED}
+        parity = dict(base, dan_dropout=0.0, synthetic=dict(synthetic, steps=1))
+        torch.save(parity, specs["parity"])
+        torch.save(dict(base, dan_dropout=0.5, synthetic=dict(synthetic, steps=3), resume_at=2,
+                        report_model=False), specs["resume"])
+        for d in ("parity", "resume", "report"):
+            os.makedirs(os.path.join(tmp, d))
+        tasks = _ddp_tasks(tmp, seed_opts, n_train, specs, numels, device)
+        secs_inputs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launch(check_ddp.run_tasks, DDP_WORLD, args=(tasks, os.path.join(tmp, "report"), tmp),
+               backend="gloo", device=device)
+        secs_ranks = time.perf_counter() - t0
+        reports = check_ddp.load_reports(os.path.join(tmp, "report"), DDP_WORLD)
+        by_task = list(zip(*reports))
+        split_one = pathlib.Path(tmp, "dataseed", "split.txt").read_bytes()
+        split_two = pathlib.Path(tmp, "dataseed", "split_world2.txt").read_bytes()
+
+        # one process's stage-1 step on the same 2 images, dropout 0
+        batches = check_ddp.stage1_batches(load_config(str(CONFIG), parity["opts"]),
+                                           **parity["synthetic"])
+        one_model, one = check_ddp.build_trainer(parity, batches)
+        one.train(0, len(batches))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        one_state = {k: v.cpu() for k, v in one_model.state_dict().items()}
+
+    steps = {"stage-1 CLI": 2, "stage-1 step against one process": 1,
+             "stage-1 checkpoint and resume": 3, "stage-2 CLI": 2, "stage-3 CLI": 3}
+    for entries in by_task:
+        name = entries[0]["name"]
+        for r, e in enumerate(entries):
+            count(e["launches"])
+            if name in steps and ([x["iter"] for x in e["records"]] != list(range(steps[name]))
+                                  or not e["ddp"]):
+                raise AssertionError(f"{name}, rank {r}: steps {e.get('records')}, DDP "
+                                     f"{e.get('ddp')}")
+        if name in steps:
+            digests = [[x["digest"] for x in e["records"]] for e in entries]
+            if any(d != digests[0] for d in digests):
+                raise AssertionError(f"{name}: the ranks' weights differ after a step")
+        cli_saves = [e.get("saved") for e in entries]
+        if name in ("stage-1 CLI", "stage-2 CLI", "stage-3 CLI") and \
+                cli_saves != [["model_final.pth"]] + [[]] * (len(entries) - 1):
+            raise AssertionError(f"{name}: checkpoints written {cli_saves}")
+    if split_one != split_two or any(e["split"] != json.loads(split_one)
+                                     for e in by_task[3]):
+        raise AssertionError(f"the split of {DDP_WORLD} ranks differs from one process's: "
+                             f"{split_two[:200]!r} against {split_one[:200]!r}")
+    resume = by_task[2]
+    if resume[0]["saved"] != ["model_0000001.pth"] or any(e["saved"] for e in resume[1:]) or \
+            any(e["resumed"]["start"] != 2 or
+                [x["digest"] for x in e["resumed"]["records"]] != [e["records"][2]["digest"]] or
+                not torch.equal(e["resumed"]["generator"], e["generator"]) for e in resume):
+        raise AssertionError(f"checkpoint and resume: saved {[e['saved'] for e in resume]}, "
+                             f"resumed {[e['resumed'] for e in resume]}")
+    ranks = by_task[1]
+    if any(not torch.equal(ranks[0]["model"][k], e["model"][k]) for e in ranks[1:]
+           for k in ranks[0]["model"]):
+        raise AssertionError("stage-1 step: the ranks' weights differ")
+    diff = max(float((ranks[0]["model"][k].double() - v.double()).abs().max())
+               for k, v in one_state.items() if v.is_floating_point())
+    if diff:
+        # not bit for bit: hold each weight's change within the tests' update
+        # tolerance (rtol 1e-3, atol 1e-5 x its largest change, plus an ulp)
+        for k, v in one_state.items():
+            if not v.is_floating_point():
+                continue
+            want, got = (v - state[k]).double(), (ranks[0]["model"][k] - state[k]).double()
+            tol = (1e-3 * want.abs() + 1e-5 * want.abs().max()
+                   + torch.from_numpy(np.spacing(state[k].abs().numpy())).double())
+            if ((got - want).abs() > tol).any():
+                raise AssertionError(f"stage-1 step of {DDP_WORLD} ranks against one process: "
+                                     f"{k} differs by {float((got - want).abs().max())}")
+    parity_line = ("bit-identical" if diff == 0.0 else
+                   f"largest difference {diff:.3e}, within rtol 1e-3 / atol 1e-5 x the largest "
+                   f"change + 1 ulp of each weight's change")
+    log("ddp", f"{DDP_WORLD} gloo ranks on one card (their inputs {secs_inputs:.1f} s, the "
+               f"ranks {secs_ranks:.1f} s, started by engine.launch.launch): the ranks' "
+               f"weights (students and teachers) bit-identical after every step of every run; "
+               f"each CLI's checkpoint written by rank 0 alone; the split's dataseed "
+               f"byte-identical to one process's ({len(split_one)} bytes); the resumed step "
+               f"equal to the straight run's on every rank, generator states too; a stage-1 "
+               f"step of {DDP_WORLD} x 1 image (dropout 0) against one process's on the same "
+               f"2 images: {parity_line}")
+    for entries in by_task:
+        name = entries[0]["name"]
+        per_rank = []
+        for r, e in enumerate(entries):
+            ms = [x["ms"] for x in e.get("records", [])]
+            warm = statistics.median(ms[1:]) if len(ms) > 1 else (ms[0] if ms else None)
+            per_rank.append(f"rank {r}: " + (f"warm step {warm:.1f} ms, " if warm else "") +
+                            f"{e['secs']:.1f} s, peak {e.get('peak_gb', 0):.2f} GB, launches "
+                            f"{e['launches']}")
+        log("ddp", f"{name} (two ranks sharing one card, not a scaling figure; a step's time "
+                   f"is its run_step, the card synchronized): " + "; ".join(per_rank))
+    reduce_ms = by_task[-1][0]["allreduce_ms"]
+    log("ddp", "one gloo all-reduce of the trained weights' gradient (f32, through the host; "
+               "two ranks on one card), median of 3: " + "; ".join(
+                   f"{n:,} ({n * 4 / 1e6:.1f} MB, {name}) {reduce_ms[n]:.1f} ms"
+                   for n, name in zip(numels, ("stage 1", "stages 2-3"))))
+    log("ddp", f"launches of the ranks {launches} on {smi}")
+    return launches
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging its wall seconds."""
     t0 = time.perf_counter()
@@ -1837,11 +2072,12 @@ def main() -> int:
     stage2_train_launches = timed("11 stage-2 training", phase_stage2_train, smi)
     stage3_train_launches = timed("12 stage-3 split and training", phase_stage3_train, smi)
     pipeline_launches = timed("13 pipeline and TTA", phase_pipeline, smi)
+    ddp_launches = timed("14 data parallel", phase_data_parallel, smi)
     paths = {"stage-1 inference": infer_launches, "stage-1 training": train_launches,
              "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches,
              "stage-2 training": stage2_train_launches,
              "stage-3 split and training": stage3_train_launches,
-             "pipeline and TTA": pipeline_launches}
+             "pipeline and TTA": pipeline_launches, "data parallel": ddp_launches}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd",
                           "roi_align_bwd")}

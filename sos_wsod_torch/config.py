@@ -241,6 +241,10 @@ def get_cfg() -> CfgNode:
         # the config files' own namespace for padding and dtype knobs
         "TPU": {"PROPOSAL_CAPACITY": 4096, "PROPOSAL_BUCKETS": (), "PGT_SEED_CAPACITY": 1024,
                 "PGT_CAPACITY": 128,   # ground-truth slots an image, stages 2-3
-                "IMAGE_SIZE_DIVISIBILITY": 64, "COMPUTE_DTYPE": "bfloat16"},
+                "IMAGE_SIZE_DIVISIBILITY": 64, "COMPUTE_DTYPE": "bfloat16",
+                # the JAX package's mesh: MESH_DEVICES has no role here (the
+                # world is --num-gpus x --num-machines processes); a model
+                # axis above 1 (tensor parallelism) raises, it is not ported
+                "MESH_DEVICES": 0, "MODEL_AXIS_SIZE": 1},
         "SEED": -1,
     })

@@ -58,13 +58,11 @@ def get_detection_dataset_dicts(names: Sequence[str], filter_empty: bool = True,
 
 
 def rank_and_world() -> Tuple[int, int]:
-    """This process's rank and the world size of ``torch.distributed``, or
-    (0, 1) when it is not initialized."""
-    import torch.distributed as dist
+    """This process's rank and the world size (``parallel/comm.py``), or
+    (0, 1) outside a process group."""
+    from ..parallel import comm
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return comm.get_rank(), comm.get_world_size()
 
 
 def training_index_stream(n: int, seed: int = 0, shuffle: bool = True, rank: int = 0,

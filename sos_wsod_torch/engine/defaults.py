@@ -3,7 +3,8 @@
 Counterpart of ``sos_wsod_tpu/engine/defaults.py`` (detectron2's
 default_argument_parser, default_setup, inference_on_dataset +
 detector_postprocess): the CLI's parser, logging, the run directory's
-``config.yaml`` and seeding, the WSL trainer's ``auto_scale_workers``, and
+``config.yaml`` and seeding, the WSL trainer's ``auto_scale_workers``, the
+device a CLI launches its processes for (``config_device``), and
 single-image OICR+ inference over a test stream, detections rescaled to the
 original image size and handed to the evaluator, whose JSON dump is the
 stage-1 -> stage-2 contract.
@@ -24,6 +25,7 @@ import torch
 from torch.profiler import record_function
 
 from ..models.postprocess import rescale_detections
+from ..parallel import comm
 
 logger = logging.getLogger(__name__)
 
@@ -33,39 +35,71 @@ def default_argument_parser(epilog: Optional[str] = None) -> argparse.ArgumentPa
     parser.add_argument("--config-file", default="", metavar="FILE")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--eval-only", action="store_true")
-    parser.add_argument("--num-gpus", type=int, default=1,
-                        help="GPUs per machine; only 1 until data parallelism is ported")
-    parser.add_argument("--num-machines", type=int, default=1)
-    parser.add_argument("--machine-rank", type=int, default=0)
-    parser.add_argument("--dist-url", default="auto")
+    add_launch_arguments(parser)
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
                         help="Modify config options 'KEY VALUE' pairs at the end")
     return parser
 
 
+def add_launch_arguments(parser: argparse.ArgumentParser) -> None:
+    """The launcher's flags (``engine/launch.py``), as detectron2 names them."""
+    parser.add_argument("--num-gpus", type=int, default=1,
+                        help="processes on this machine, one a GPU")
+    parser.add_argument("--num-machines", type=int, default=1)
+    parser.add_argument("--machine-rank", type=int, default=0,
+                        help="the rank of this machine, 0 to --num-machines - 1")
+    parser.add_argument("--dist-url", default="auto",
+                        help="the process group's address: tcp://host:port of machine 0 "
+                             "with more than one machine; 'auto' picks a free local port")
+
+
+def config_device(config_file: str, opts) -> str:
+    """MODEL.DEVICE of ``config_file`` with the KEY VALUE pairs ``opts``:
+    the device a CLI launches its processes for."""
+    from ..config import get_cfg
+
+    cfg = get_cfg()
+    if config_file:
+        cfg.merge_from_file(config_file)
+    cfg.merge_from_list(opts or [])
+    return cfg.MODEL.DEVICE
+
+
 def setup_logging(output_dir: str = "") -> None:
-    """INFO logging to stdout and, with ``output_dir``, to its log.txt."""
+    """INFO logging to stdout and, with ``output_dir``, to its log.txt. In a
+    process group every line carries the rank, and only rank 0 writes the
+    file."""
     handlers = [logging.StreamHandler(sys.stdout)]
-    if output_dir:
+    if output_dir and comm.is_main_process():
         os.makedirs(output_dir, exist_ok=True)
         handlers.append(logging.FileHandler(os.path.join(output_dir, "log.txt")))
+    rank = f"rank {comm.get_rank()} " if comm.get_world_size() > 1 else ""
     logging.basicConfig(level=logging.INFO, handlers=handlers, force=True,
-                        format="[%(asctime)s] %(name)s %(levelname)s: %(message)s")
+                        format=f"[%(asctime)s] {rank}%(name)s %(levelname)s: %(message)s")
 
 
 def default_setup(cfg, args) -> None:
-    """Logging, ``OUTPUT_DIR``/config.yaml and numpy's seed (SEED >= 0).
-    Raises for more than one GPU or machine: data parallelism is not
-    ported."""
-    if args.num_gpus > 1 or args.num_machines > 1:
-        raise NotImplementedError("--num-gpus/--num-machines > 1: data parallelism is not "
-                                  "ported; run on one GPU")
+    """Logging, ``OUTPUT_DIR``/config.yaml (written by rank 0) and numpy's
+    seed (SEED >= 0). Raises when the flags ask for more than one process
+    but this one is in no process group (``main`` called without
+    ``engine.launch.launch``), and for TPU.MODEL_AXIS_SIZE > 1: tensor
+    parallelism is not ported."""
+    wanted = args.num_gpus * args.num_machines
+    if wanted > 1 and comm.get_world_size() == 1:
+        raise RuntimeError(f"--num-gpus {args.num_gpus} --num-machines {args.num_machines} but "
+                           "this process is in no process group: start the CLI through "
+                           "engine.launch.launch (python -m ...), which spawns the processes")
+    if cfg.TPU.MODEL_AXIS_SIZE > 1:
+        raise NotImplementedError(
+            f"TPU.MODEL_AXIS_SIZE {cfg.TPU.MODEL_AXIS_SIZE}: tensor parallelism of the DAN fc "
+            "stack is not ported (ROADMAP Queue 1 item 4); the port runs data parallel only")
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Command line args: %s", args)
     if cfg.OUTPUT_DIR:
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-            f.write(cfg.dump())
+        if comm.is_main_process():
+            with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+                f.write(cfg.dump())
     if cfg.SEED >= 0:
         np.random.seed(cfg.SEED)
 

@@ -3,7 +3,10 @@ EvalHook and LRSchedulerHook.
 
 Counterpart of the same classes in ``sos_wsod_tpu/engine/hooks.py``
 (detectron2's hook surface). The profiler hook is not ported: the port's
-layers carry torch.profiler ranges instead.
+layers carry torch.profiler ranges instead. In a process group the CLIs
+give PeriodicWriter to rank 0 only, the checkpointer writes on rank 0, and
+EvalHook evaluates on rank 0 while the others wait (every rank holds the
+same weights; two ranks must not write one detection JSON).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import time
 from typing import Callable, List, Optional
 
 from ..evaluation.testing import flatten_results_dict
+from ..parallel import comm
 
 logger = logging.getLogger(__name__)
 
@@ -87,24 +91,32 @@ class CheckpointHook(HookBase):
     def __init__(self, periodic_checkpointer):
         self._pc = periodic_checkpointer
 
+    @property
+    def checkpointer(self):
+        """The ``Checkpointer`` the saves go through."""
+        return self._pc.checkpointer
+
     def after_step(self):
-        self._pc.step(self.trainer.iter, self.trainer.state_dict())
+        self._pc.step(self.trainer.iter, self.trainer.state_dict)
 
 
 class EvalHook(HookBase):
     """Runs ``eval_fn`` after every ``eval_period``-th step except the last,
     and once after training when training reached ``max_iter``; puts the
-    flattened results ("<dataset>/bbox/AP50", ...) as unsmoothed scalars."""
+    flattened results ("<dataset>/bbox/AP50", ...) as unsmoothed scalars.
+    In a process group rank 0 evaluates and the others wait for it."""
 
     def __init__(self, eval_period: int, eval_fn: Callable[[], Optional[dict]]):
         self._period = eval_period
         self._fn = eval_fn
 
     def _do_eval(self):
-        results = self._fn()
-        if results:
-            self.trainer.storage.put_scalars(smoothing_hint=False,
-                                             **flatten_results_dict(results))
+        if comm.is_main_process():
+            results = self._fn()
+            if results:
+                self.trainer.storage.put_scalars(smoothing_hint=False,
+                                                 **flatten_results_dict(results))
+        comm.synchronize()
 
     def after_step(self):
         it = self.trainer.iter

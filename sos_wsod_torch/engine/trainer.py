@@ -10,24 +10,35 @@ jitted step:
     package's optax.MultiSteps), then clipping, SGD and the LR schedule
     step once;
   - a non-finite total raises FloatingPointError before its backward;
-  - dropout draws from a torch.Generator seeded with max(SEED, 0);
+  - dropout draws from a torch.Generator seeded with max(SEED, 0) (rank r
+    of a process group: ``comm.derive_seed(max(SEED, 0), r)``);
   - ``state_dict``/``load_state_dict`` carry what a resumed run needs:
-    model, optimizer, LR schedule, the dropout generator, ``iter`` (steps
-    completed) and gradients accumulated towards an update.
+    model, optimizer, LR schedule, the dropout generator (every rank's),
+    ``iter`` (steps completed) and gradients accumulated towards an update.
 Each image's backward runs right after its forward, so only one image's
-activations are alive at a time. Profiler ranges: ``h2d``, ``backward``,
+activations are alive at a time.
+
+In a process group (``engine/launch.py``) the model runs under
+DistributedDataParallel: each rank takes its share of the global batch
+from its loader, every backward but the one that completes an update runs
+under ``no_sync``, and DDP's mean over the ranks of the gradients, each the
+rank's per-image mean, is the global batch's mean (the losses are per-image
+means, so no count crosses the ranks). The logged scalars are means over
+the ranks (``comm.reduce_dict``). Profiler ranges: ``h2d``, ``backward``,
 ``optimizer`` and those of ``MultiInputRCNN.loss``.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 import weakref
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch.profiler import record_function
 
+from ..parallel import comm
 from ..solver.build import build_optimizer, clip_gradients
 from ..utils.events import EventStorage
 from .hooks import HookBase
@@ -89,7 +100,59 @@ class TrainerBase:
         raise NotImplementedError
 
 
-class Stage1Trainer(TrainerBase):
+def seeded_generator(device, seed: int) -> torch.Generator:
+    """A generator on ``device`` seeded for this rank:
+    ``comm.derive_seed(seed, rank)``, ``seed`` itself on rank 0 and in one
+    process."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(comm.derive_seed(seed, comm.get_rank()))
+    return generator
+
+
+class DataParallelMixin:
+    """What the trainers share in a process group: ``model`` is the module
+    itself (its ``state_dict``, ``compute_dtype``, evaluation), ``ddp`` its
+    DistributedDataParallel wrapper (None in one process); ``run`` calls the
+    model through it; the generator's state is saved and restored by
+    rank."""
+
+    model: torch.nn.Module
+    ddp: Optional[torch.nn.parallel.DistributedDataParallel]
+    generator: torch.Generator
+
+    def run(self, fn: Callable[[torch.nn.Module], Any], sync: bool = True):
+        """``fn(model)``; in a process group inside DDP's forward, which
+        prepares the all-reduce of the next backward unless ``sync`` is
+        False (then ``no_sync``: the backward keeps its gradients local,
+        and the next synced one reduces them all)."""
+        if self.ddp is None:
+            return fn(self.model)
+        with contextlib.nullcontext() if sync else self.ddp.no_sync():
+            return self.ddp(fn)
+
+    def generator_states(self) -> Dict[str, Any]:
+        """{"generator": this rank's state}, and in a process group
+        "generators": every rank's, by rank (on every rank)."""
+        state = self.generator.get_state()
+        out = {"generator": state}
+        if comm.get_world_size() > 1:
+            out["generators"] = comm.process_gather([state])
+            out["generator"] = out["generators"][0]
+        return out
+
+    def load_generator_state(self, state: Dict[str, Any]) -> None:
+        """This rank's generator state of ``state``: its own entry of
+        "generators", else (a checkpoint of one process) "generator" on
+        rank 0; a rank the checkpoint has no state for keeps its seed."""
+        rank = comm.get_rank()
+        per_rank = state.get("generators")
+        if per_rank is not None and rank < len(per_rank):
+            self.generator.set_state(per_rank[rank].cpu())
+        elif rank == 0:
+            self.generator.set_state(state["generator"].cpu())
+
+
+class Stage1Trainer(DataParallelMixin, TrainerBase):
     """OICR+ multi-input trainer. ``data_iter`` yields a list of mapped
     samples (``data.build.batched_stream``) or one sample; ``model`` is a
     ``MultiInputRCNN``, and batches go to the device of its parameters."""
@@ -98,13 +161,13 @@ class Stage1Trainer(TrainerBase):
         super().__init__()
         self.cfg = cfg
         self.model = model.train()
+        self.ddp = comm.wrap_ddp(model)
         self.data_iter = data_iter
         self.device = next(model.parameters()).device
         self.optimizer, self.scheduler = build_optimizer(cfg, model)
         self.params = [p for g in self.optimizer.param_groups for p in g["params"]]
         self.iter_size = max(1, int(cfg.WSL.ITER_SIZE or 1))
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(max(cfg.SEED, 0))
+        self.generator = seeded_generator(self.device, max(cfg.SEED, 0))
         self._micro_steps = 0
         self.steps_done = 0
 
@@ -117,13 +180,16 @@ class Stage1Trainer(TrainerBase):
         self.model.train()
         bf16 = self.model.compute_dtype == torch.bfloat16
         n = len(samples)
+        updates = (self._micro_steps + 1) % self.iter_size == 0
         per_image = []
-        for sample in samples:
+        for i, sample in enumerate(samples):
             with record_function("h2d"):
                 b = {k: torch.as_tensor(v, device=self.device)
                      for k, v in sample.items() if k != "image_id"}
+            # only the backward that completes an update all-reduces
+            sync = updates and i == n - 1
             with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=bf16):
-                losses = self.model.loss(b, self.generator)
+                losses = self.run(lambda m: m.loss(b, self.generator), sync)
             total = sum(v for k, v in losses.items() if k.startswith("loss"))
             if not torch.isfinite(total):
                 raise FloatingPointError(f"Loss became {float(total.detach())} at iteration "
@@ -142,31 +208,41 @@ class Stage1Trainer(TrainerBase):
                 self.optimizer.zero_grad(set_to_none=True)
 
         keys = list(per_image[0])
-        means = torch.stack([torch.stack([m[k] for m in per_image]).mean() for k in keys])
+        means = {k: torch.stack([m[k] for m in per_image]).mean() for k in keys}
+        means = comm.reduce_dict(means)
         self.storage.put_scalar("data_time", data_time)
-        for k, v in zip(keys, means.tolist()):
+        for k, v in zip(keys, torch.stack([means[k] for k in keys]).tolist()):
             self.storage.put_scalar(k, v)
         self.steps_done = self.iter + 1
 
     def state_dict(self) -> Dict[str, Any]:
         """What a resumed run needs; ``iter`` is the number of steps done.
         Gradients accumulated towards the next update (WSL.ITER_SIZE > 1)
-        are kept too."""
+        are kept too; in a process group each rank's, which are its own
+        until the update's all-reduce ("rank_grads", by rank). Collective
+        in a process group: every rank calls it."""
         pending = self._micro_steps % self.iter_size
+        grads = [p.grad for p in self.params] if pending else None
+        acc = {"micro_steps": pending, "grads": grads}
+        if pending and comm.get_world_size() > 1:
+            acc["rank_grads"] = comm.process_gather([[g.cpu() for g in grads]])
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "scheduler": self.scheduler.state_dict(),
-                "generator": self.generator.get_state(), "iter": self.steps_done,
-                "accumulated": {"micro_steps": pending,
-                                "grads": [p.grad for p in self.params] if pending else None}}
+                "scheduler": self.scheduler.state_dict(), **self.generator_states(),
+                "iter": self.steps_done, "accumulated": acc}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Restore a ``state_dict`` (tensors on the model's device)."""
+        """Restore a ``state_dict`` (tensors on the model's device), with
+        this rank's generator state and accumulated gradients."""
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
-        self.generator.set_state(state["generator"].cpu())
+        self.load_generator_state(state)
         self.steps_done = int(state["iter"])
         acc = state["accumulated"]
         self._micro_steps = acc["micro_steps"]
-        for p, g in zip(self.params, acc["grads"] or [None] * len(self.params)):
+        grads = acc["grads"]
+        rank_grads = acc.get("rank_grads")
+        if rank_grads is not None and comm.get_rank() < len(rank_grads):
+            grads = [g.to(self.device) for g in rank_grads[comm.get_rank()]]
+        for p, g in zip(self.params, grads or [None] * len(self.params)):
             p.grad = g

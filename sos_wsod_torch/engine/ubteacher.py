@@ -10,7 +10,8 @@ steps:
     loss), sums the losses into ``total_loss``, raises FloatingPointError on
     a non-finite total before its backward, then steps SGD and the LR
     schedule (``solver/build.py``);
-  - the sampling draws come from a torch.Generator seeded with max(SEED, 0);
+  - the sampling draws come from a torch.Generator seeded with max(SEED, 0)
+    (rank r of a process group: ``comm.derive_seed(max(SEED, 0), r)``);
   - ``UBTeacherTrainer`` keeps a ``teacher`` copy of the model, trains on
     ``label_k`` (or ``label_q + label_k`` with
     SEMISUPNET.BURN_UP_WITH_STRONG_AUG) while the iteration is below
@@ -24,7 +25,15 @@ steps:
     strong unlabeled images against the pseudo ground truth (the
     regression terms weighted 0);
   - ``state_dict``/``load_state_dict`` carry what a resumed run needs, the
-    teacher included.
+    teacher and every rank's generator state included.
+In a process group (``engine/launch.py``) the student runs under
+DistributedDataParallel and the teacher does not: each rank copies its
+teacher from the student before the wrap, makes the pseudo labels of its
+own unlabeled images and applies the same EMA to the same weights, so the
+teachers stay equal. Each loss is a per-image mean (the normalizers of
+``rpn_losses`` and ``fast_rcnn_losses`` are counts of one image), and
+every rank holds the same number of images, so DDP's mean over the ranks
+is the global batch's loss. The logged scalars are means over the ranks.
 Profiler ranges: ``h2d``, ``ema``, ``teacher``, ``backward``, ``optimizer``
 and those of ``GeneralizedRCNN.losses`` and ``predict``.
 """
@@ -38,8 +47,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..parallel import comm
 from ..solver.build import build_optimizer, clip_gradients
-from .trainer import TrainerBase
+from .trainer import DataParallelMixin, TrainerBase, seeded_generator
 
 # the keys a step hands to the model; the rest (image_id, orig_hw, ...) is
 # host-side metadata
@@ -92,7 +102,7 @@ def threshold_pseudo_boxes(det_boxes: torch.Tensor, det_scores: torch.Tensor,
     return keep
 
 
-class BaselineTrainer(TrainerBase):
+class BaselineTrainer(DataParallelMixin, TrainerBase):
     """Stage-2 supervised trainer. ``data_iter`` yields lists of mapped
     samples on one canvas (the loader's ``label_k``); ``model`` is a
     ``GeneralizedRCNN``, and batches go to the device of its parameters."""
@@ -101,13 +111,17 @@ class BaselineTrainer(TrainerBase):
         super().__init__()
         self.cfg = cfg
         self.model = model.train()
+        self._before_wrap(model)
+        self.ddp = comm.wrap_ddp(model)
         self.data_iter = data_iter
         self.device = next(model.parameters()).device
         self.optimizer, self.scheduler = build_optimizer(cfg, model)
         self.params = [p for g in self.optimizer.param_groups for p in g["params"]]
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(max(cfg.SEED, 0))
+        self.generator = seeded_generator(self.device, max(cfg.SEED, 0))
         self.steps_done = 0
+
+    def _before_wrap(self, model) -> None:
+        """What a subclass takes from the model before DDP wraps it."""
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
@@ -134,16 +148,17 @@ class BaselineTrainer(TrainerBase):
         with record_function("h2d"):
             batch = stack_samples(samples, self.device)
         with self._autocast():
-            losses = self.model.losses(batch, self.generator)
+            losses = self.run(lambda m: m.losses(batch, self.generator))
         total = sum(v.float() for v in losses.values())
         self._update(total)
         return {**{k: v.detach() for k, v in losses.items()}, "total_loss": total.detach()}
 
     def _finish_step(self, data_time: float, metrics: Dict[str, torch.Tensor]) -> None:
-        """Put the step's scalars (one read back from the device) and count
-        the step as done."""
+        """Put the step's scalars (one read back from the device; means over
+        the ranks in a process group) and count the step as done."""
         self.storage.put_scalar("data_time", data_time)
         keys = list(metrics)
+        metrics = comm.reduce_dict(metrics)
         for k, v in zip(keys, torch.stack([metrics[k].float() for k in keys]).tolist()):
             self.storage.put_scalar(k, v)
         self.steps_done = self.iter + 1
@@ -159,17 +174,19 @@ class BaselineTrainer(TrainerBase):
         return self.model
 
     def state_dict(self) -> Dict[str, Any]:
-        """What a resumed run needs; ``iter`` is the number of steps done."""
+        """What a resumed run needs; ``iter`` is the number of steps done.
+        Collective in a process group: every rank calls it."""
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "scheduler": self.scheduler.state_dict(),
-                "generator": self.generator.get_state(), "iter": self.steps_done}
+                "scheduler": self.scheduler.state_dict(), **self.generator_states(),
+                "iter": self.steps_done}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Restore a ``state_dict`` (tensors on the model's device)."""
+        """Restore a ``state_dict`` (tensors on the model's device), with
+        this rank's generator state."""
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
-        self.generator.set_state(state["generator"].cpu())
+        self.load_generator_state(state)
         self.steps_done = int(state["iter"])
 
 
@@ -186,6 +203,9 @@ class UBTeacherTrainer(BaselineTrainer):
         ss = cfg.SEMISUPNET
         self.burn_up_step = ss.BURN_UP_STEP
         self.burn_up_with_strong = ss.BURN_UP_WITH_STRONG_AUG
+
+    def _before_wrap(self, model) -> None:
+        """The teacher: a copy of the student, taken before DDP wraps it."""
         self.teacher = copy.deepcopy(model).eval().requires_grad_(False)
 
     def keep_rate(self) -> float:
@@ -235,9 +255,10 @@ class UBTeacherTrainer(BaselineTrainer):
             unlabel_k = stack_samples(batch["unlabel_k"], self.device)
         with record_function("teacher"):
             pseudo = self.pseudo_labels(unlabel_k)
+        # both passes in one DDP forward, for the one backward of their sum
         with self._autocast():
-            sup = self.model.losses(label, self.generator)
-            uns = self.model.losses({**unlabel_q, **pseudo}, self.generator)
+            sup, uns = self.run(lambda m: (m.losses(label, self.generator),
+                                           m.losses({**unlabel_q, **pseudo}, self.generator)))
         w = self.cfg.SEMISUPNET.UNSUP_LOSS_WEIGHT
         total = sum(v.float() for v in sup.values())
         for k, v in uns.items():

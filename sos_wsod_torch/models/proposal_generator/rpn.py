@@ -123,6 +123,9 @@ def rpn_losses(pred_logits: torch.Tensor, pred_deltas: torch.Tensor, anchors: to
     pos, neg, matched = label_and_sample_anchors(anchors, gt_boxes, gt_valid, matcher,
                                                  batch_size_per_image, positive_fraction,
                                                  generator)
+    # a per-image constant (detectron2 divides by batch_size_per_image x
+    # images, the JAX package per image before its mean over the batch), so
+    # DDP's mean over ranks of equal local batches is the global mean
     normalizer = float(batch_size_per_image)
     tgt = get_deltas(anchors, gt_boxes[matched], bbox_reg_weights)
     diff = (pred_deltas.float() - tgt).abs()

@@ -116,7 +116,13 @@ def fast_rcnn_losses(scores: torch.Tensor, deltas: torch.Tensor, sampled_boxes: 
     their classes in [0, K] (K the background), matched gt boxes, validity
     and foreground -> loss_cls (CE, or ubteacher's focal CE x (1 - p)^gamma,
     summed over the sampled rows over their count) and loss_box_reg (L1 of
-    the foreground's class column)."""
+    the foreground's class column).
+
+    One image's rows: ``n`` and the foreground count of "smooth_l1_mean"
+    are that image's counts, as in the JAX package's per-image vmap, and
+    the batch's loss is the mean over its images. Under data parallelism
+    each rank holds the same number of images, so DDP's mean over the ranks
+    of these means is the global batch's mean: no count is all-reduced."""
     zero = torch.zeros((), dtype=torch.float32, device=scores.device)
     n = torch.clamp(sampled_valid.float().sum(), min=1.0)
     logp = torch.log_softmax(scores.float(), dim=-1)

@@ -91,7 +91,8 @@ def train_once(device, steps: int, opts: Sequence = (), raw_hw=RAW_HW,
     params = dict(model.named_parameters())
     return {"loss_cls": [v for v, _ in hist["loss_cls"].values()],
             "total_loss": [v for v, _ in hist["total_loss"].values()],
-            "weights": {n: params[n].detach().clone() for n in WATCH}}
+            "weights": {n: params[n].detach().clone() for n in WATCH},
+            "ddp": trainer.ddp is not None}
 
 
 def train_stage2_once(device, steps: int, opts: Sequence = (), raw_hw=RAW_HW,
@@ -126,7 +127,8 @@ def train_stage2_once(device, steps: int, opts: Sequence = (), raw_hw=RAW_HW,
     hist = trainer.storage.histories()
     params = dict(model.named_parameters())
     return {**{k: [v for v, _ in hist[k].values()] for k in STAGE2_LOSSES},
-            "weights": {n: params[n].detach().clone() for n in STAGE2_WATCH}}
+            "weights": {n: params[n].detach().clone() for n in STAGE2_WATCH},
+            "ddp": trainer.ddp is not None}
 
 
 def write_stage3_inputs(root: str, opts: Sequence = (), raw_hw=RAW_HW,

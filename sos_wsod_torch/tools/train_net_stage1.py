@@ -8,8 +8,12 @@ detection-result JSON that stage 2 reads. The VOC sets and the extra WSL
 sets are registered under ``./datasets`` (``register_all_voc``,
 ``register_all_extra``). As in the JAX CLI, MODEL.WEIGHTS is
 not read: training starts from the model's initializer, seeded by SEED.
+``__main__`` starts ``main`` through ``engine/launch.py``: ``--num-gpus N``
+processes on this machine (``--num-machines M --machine-rank R --dist-url
+tcp://host:port`` across machines), one a GPU, data parallel; each maps its
+share of SOLVER.IMS_PER_BATCH.
 
-    python -m sos_wsod_torch.tools.train_net_stage1 \\
+    python -m sos_wsod_torch.tools.train_net_stage1 [--num-gpus N] \\
         --config-file configs/stage1/voc07_oicr_plus.yaml [--resume] [--eval-only] [KEY VALUE ...]
 """
 from __future__ import annotations
@@ -17,8 +21,6 @@ from __future__ import annotations
 import logging
 import os
 from collections import OrderedDict
-
-import torch
 
 from ..config import get_cfg
 from ..data.build import build_stage1_test_loader, build_stage1_train_loader, rank_and_world
@@ -28,6 +30,7 @@ from ..data.datasets.voc import register_all_voc
 from ..engine.checkpoint import Checkpointer, PeriodicCheckpointer
 from ..engine.defaults import (
     auto_scale_workers,
+    config_device,
     default_argument_parser,
     default_setup,
     run_stage1_inference,
@@ -39,12 +42,14 @@ from ..engine.hooks import (
     LRSchedulerHook,
     PeriodicWriter,
 )
+from ..engine.launch import launch
 from ..engine.synthetic import build_synthetic_model
 from ..engine.trainer import Stage1Trainer
 from ..engine.weights import load_weights
 from ..evaluation.testing import verify_results
 from ..evaluation.voc_eval import PascalVOCDetectionEvaluator, annotations_from_dataset_dicts
 from ..models.meta.rcnn_wsl import MultiInputRCNN
+from ..parallel import comm
 from ..utils.events import CommonMetricPrinter, JSONWriter
 
 logger = logging.getLogger(__name__)
@@ -83,10 +88,12 @@ def do_test(cfg, model) -> OrderedDict:
     return results
 
 
-def main(args):
+def main(args, hooks=()):
     """Train (returns the trainer) or, with ``--eval-only``, evaluate the
     checkpoint named by ``last_checkpoint``, else ``model_final`` (returns
-    the results by dataset)."""
+    the results by dataset; in a process group rank 0 evaluates and the
+    others return an empty dict). ``hooks`` are registered after the CLI's
+    own. MODEL.DEVICE "cuda" is the card the launcher gave this process."""
     cfg = setup(args)
     register_all_voc()
     register_all_extra()
@@ -94,28 +101,36 @@ def main(args):
         raise NotImplementedError(
             f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: only the multi-input "
             "stage-1 model (MultiInputRCNN) is ported")
-    device = torch.device(cfg.MODEL.DEVICE)
+    device = comm.local_device(cfg.MODEL.DEVICE)
     checkpointer = Checkpointer(cfg.OUTPUT_DIR)
 
     if args.eval_only:
+        if not comm.is_main_process():
+            comm.synchronize()
+            return OrderedDict()
         name = checkpointer.get_last_checkpoint() or "model_final"
         state = checkpointer.load(name, map_location=device)
         model = load_weights(MultiInputRCNN.from_cfg(cfg, device="meta"), state["model"], device)
         logger.info("Loaded the model of %s (iteration %s)", checkpointer.path(name),
                     state.get("iter"))
-        return do_test(cfg, model)
+        results = do_test(cfg, model)
+        comm.synchronize()
+        return results
 
     model = build_synthetic_model(cfg, device, max(cfg.SEED, 0))
     trainer = Stage1Trainer(cfg, model, build_stage1_train_loader(cfg))
-    writers = [CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
-               JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json"))]
+    # rank 0 prints and writes metrics.json
+    writer = PeriodicWriter([CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
+                             JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json"))],
+                            period=20) if comm.is_main_process() else None
     trainer.register_hooks([
         IterationTimer(),
         LRSchedulerHook(),
         CheckpointHook(PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD,
                                             cfg.SOLVER.MAX_ITER)),
         EvalHook(cfg.TEST.EVAL_PERIOD, lambda: do_test(cfg, model)),
-        PeriodicWriter(writers, period=20),
+        writer,
+        *hooks,
     ])
     start_iter = checkpointer.resume_or_load(trainer, resume=args.resume)
     try:
@@ -126,4 +141,6 @@ def main(args):
 
 
 if __name__ == "__main__":
-    main(default_argument_parser().parse_args())
+    args = default_argument_parser().parse_args()
+    launch(main, args.num_gpus, args.num_machines, args.machine_rank, args.dist_url,
+           args=(args,), device=config_device(args.config_file, args.opts))

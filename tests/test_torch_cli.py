@@ -413,7 +413,8 @@ def test_cli_trains_resumes_and_dumps_json_like_jax(tree, monkeypatch):
 
 def test_cli_refuses_what_is_not_ported(tree, monkeypatch):
     monkeypatch.chdir(tree)
-    with pytest.raises(NotImplementedError, match="data parallelism"):
+    # more than one GPU is ported, through engine.launch: main alone refuses it
+    with pytest.raises(RuntimeError, match="no process group"):
         cli.main(_args("--num-gpus", "2", opts=["OUTPUT_DIR", "refused"]))
     with pytest.raises(NotImplementedError, match="MultiInputRCNN"):
         cli.main(_args(opts=["OUTPUT_DIR", "refused", "MODEL.META_ARCHITECTURE",

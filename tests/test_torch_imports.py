@@ -157,6 +157,20 @@ with tempfile.TemporaryDirectory() as tmp:
     assert "AP50" in res["voc_2007_test"]["bbox"], res
     os.chdir(cwd)
 
+# data parallelism: the launcher, rank and world, and the checks of chip_smoke's
+# phase 14; a world of one runs in this process, and two gloo ranks (fresh
+# processes, where nothing blocks JAX) import none of it either
+from sos_wsod_torch.engine.launch import launch
+from sos_wsod_torch.parallel import comm
+from sos_wsod_torch.tools import check_ddp
+assert {"sos_wsod_torch.parallel.comm", "sos_wsod_torch.engine.launch",
+        "sos_wsod_torch.tools.check_ddp"} <= set(names)
+assert launch(comm.get_world_size, 1, device="cpu") == 1
+with tempfile.TemporaryDirectory() as tmp:
+    launch(check_ddp.loader_ids, 2, args=(tmp, 8, 2, 2, 2, 2), backend="gloo", device="cpu")
+    for r in check_ddp.load_reports(tmp, 2):
+        assert not r["foreign_modules"], r["foreign_modules"]
+
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad

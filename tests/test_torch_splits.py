@@ -172,12 +172,22 @@ def test_main_writes_the_jax_dataseed(tree, monkeypatch):
 
 
 def test_main_refuses_more_than_one_process(tree, monkeypatch):
-    from sos_wsod_torch.data import build
+    """More than one process writing the dataseed: rank 1 of 2 scores its
+    share (the images 1, 3 and 5), hands its (position, id, loss) triples to
+    the gather, computes the split and writes nothing (rank 0 writes)."""
+    from sos_wsod_torch.parallel import comm
 
     monkeypatch.chdir(tree)
-    monkeypatch.setattr(build, "rank_and_world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="data parallelism"):
-        splits.main(["--config", SPLIT, "--save-path", "dataseed/never.txt", *TREE_OPTS])
+    monkeypatch.setattr(comm, "get_rank", lambda: 1)
+    monkeypatch.setattr(comm, "get_world_size", lambda: 2)
+    monkeypatch.setattr(comm, "synchronize", lambda: None)
+    gathered = []
+    monkeypatch.setattr(comm, "process_gather", lambda objs: gathered.append(objs) or objs)
+    split, _ = splits.main(["--config", SPLIT, "--ckpt", "out/model_final", "--save-path",
+                            "dataseed/never.txt", "--k", "1", *TREE_OPTS])
+    (triples,) = gathered
+    assert [p for p, _, _ in triples] == [1, 3, 5]
+    assert len(next(iter(split.values()))["1"]) == 1
     assert not (tree / "dataseed" / "never.txt").exists()
 
 

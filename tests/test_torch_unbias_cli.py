@@ -177,13 +177,15 @@ def _train(*flags_and_opts):
 
 
 def test_training_is_refused(train_tree, monkeypatch):
-    """What stage-2/3 training does not take yet: more than one GPU (data
-    parallelism). The ubteacher trainer past its burn-in, once refused too,
-    now trains: voc_ssod through the CLI, 1 burn-in step and 1
-    semi-supervised step; the checkpoint's teacher is the student after the
-    burn-in step (the copy at BURN_UP_STEP), not the model as built."""
+    """What stage-2/3 training refuses: more than one GPU asked of main
+    called without engine.launch (which starts the processes of data
+    parallelism; tests/test_torch_ddp_ssod.py trains them). The ubteacher
+    trainer past its burn-in, once refused too, now trains: voc_ssod through
+    the CLI, 1 burn-in step and 1 semi-supervised step; the checkpoint's
+    teacher is the student after the burn-in step (the copy at
+    BURN_UP_STEP), not the model as built."""
     monkeypatch.chdir(train_tree)
-    with pytest.raises(NotImplementedError, match="data parallelism"):
+    with pytest.raises(RuntimeError, match="no process group"):
         _train("--num-gpus", "2", *TRAIN, "OUTPUT_DIR", "refused")
     write_dataseed(str(train_tree), load_config(SSOD), 5)
     trainer = cli.main(default_argument_parser().parse_args(
