@@ -45,6 +45,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
      bit-identical, and the same bits from two launches; times as called
      and on the device beside the bound, the bin-tile pairs, the plain
      backward's time on the card and index_add_'s alone for the same terms;
+  4e. ROILoopPool forward vs plain: kernel E at the production shape
+     (87 x 119 x 512, P = 4096 -> 3P rows [box; frame; context]) in bf16
+     and f32, and on an adversarial map (a zero and a negative block, boxes
+     covering the image, on its edges, below a cell, empty and invalid; 136
+     and 3 channels): torch.equal out and pos with and without pos and
+     scale; its backward (kernel A bwd over the 3P rows) bit-identical to
+     the plain backward run on the CPU and across two launches; times as
+     called and on the device beside the bound and the plain version's
+     (sos_wsod_torch/tools/bench_roi_loop_pool.py);
   5. inference slice: the full-width VGG16 OICR+ model of
      configs/stage1/voc07_oicr_plus.yaml with random weights made from a
      seed, 4 synthetic VOC-sized images through run_stage1_inference in bf16
@@ -160,7 +169,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
      and 2 semi-supervised steps); after every step the ranks' weights, the
      teacher's too, bit-identical; each CLI's checkpoint written by rank 0
      alone; prints each run's warm step time, seconds, peak memory and
-     launches a rank, labelled as two ranks sharing one card.
+     launches a rank, labelled as two ranks sharing one card;
+ 15. the single-view heads: GeneralizedRCNNWSL with each of WSDDN, OICR,
+     PCL, CMIL and ContextLocNet (ROILoopPool) through the stage-1 CLI at
+     full width (voc07_oicr_plus.yaml with SINGLE_VIEW_OPTS; cut:
+     SOLVER.IMS_PER_BATCH 4 -> 1 and 3 steps, CMIL 2 then --resume to 3) on
+     a synthetic VOC tree (4 train, 2 val, 4 test 375x500 JPEGs, 4000
+     proposals each), random weights from the seed, bf16: every step's
+     losses finite, the launches of kernels A fwd, A bwd, C and E a step and
+     an eval image, the eval after training and --eval-only on the
+     checkpoint, the first test image's detections equal to the all-plain
+     path's; prints each head's losses, warm step, peak memory, and the host
+     and device ms by range and the device's busy share of its profiled
+     last step.
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the stage-1 inference throughput.
@@ -173,7 +194,8 @@ f32 operations over 67 TFLOP/s. NMS is bound by operations (those of each
 kept box against every later kept box, and one test a suppressed box);
 ROIAlign's bound is computed from both (9 f32 operations for each channel of
 each sample of each valid ROI's grid); every other kernel here is bound by
-bytes (its operations are compares and adds).
+bytes (its operations are compares and adds). ROILoopPool's bytes: the map,
+boxes, valid and scales read once, its 3P rows of out and pos written once.
 """
 from __future__ import annotations
 
@@ -182,6 +204,7 @@ import json
 import logging
 import os
 import pathlib
+import shutil
 import statistics
 import sys
 import tempfile
@@ -204,7 +227,7 @@ NUM_IMAGES = 4
 TRAIN_STEPS = 4
 SEED = 0
 KERNELS = ("roi_pool_fwd", "roi_pool_bwd", "gather_rows", "nms", "roi_align_fwd",
-           "roi_align_bwd")
+           "roi_align_bwd", "roi_loop_pool_fwd")
 GATHER_TABLE_ROWS, GATHER_C = 2871180, 512
 CLI_SPLITS = (("train", 8), ("val", 4), ("test", 4))
 RANGES = ("h2d", "backbone", "roi_pool", "box_head", "mining", "losses", "backward",
@@ -248,6 +271,21 @@ DDP_STAGE1_OPTS = []
 DDP_STAGE23_OPTS = []
 DDP_REPEAT_STAGE1 = {}
 DDP_REPEAT_STAGE2 = {}
+# the single-view heads (phase 15): GeneralizedRCNNWSL on voc07_oicr_plus.yaml
+# with the JAX defaults WSL.REFINE_NUM 3 and no box regression, each head by
+# MODEL.ROI_HEADS.NAME; cut: SOLVER.IMS_PER_BATCH 4 -> 1 and 3 steps (CMIL 2,
+# then --resume to 3); further overrides (none on the card)
+SINGLE_VIEW_OPTS = ["MODEL.META_ARCHITECTURE", "GeneralizedRCNNWSL", "WSL.REFINE_NUM", "3",
+                    "WSL.REFINE_REG", "[False, False, False]"]
+SINGLE_VIEW_HEADS = {"WSDDN": [], "OICR": [], "PCL": [], "CMIL": [],
+                     "ContextLocNet": ["MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROILoopPool"]}
+SINGLE_VIEW_CUT = ["SOLVER.IMS_PER_BATCH", "1", "SOLVER.CHECKPOINT_PERIOD", "100",
+                   "TEST.EVAL_PERIOD", "0"]
+SINGLE_VIEW_STEPS = 3
+SINGLE_VIEW_SPLITS = (("train", 4), ("val", 2), ("test", 4))
+SINGLE_VIEW_EXTRA = []
+SINGLE_VIEW_RANGES = ("h2d", "backbone", "roi_pool", "box_head", "mining", "backward",
+                      "optimizer")
 
 
 def log(phase: str, msg: str) -> None:
@@ -392,14 +430,16 @@ def _reset_nms_launches() -> None:
 @contextlib.contextmanager
 def _plain_versions(roi_align: bool = False, roi_pool: bool = False):
     """Route the card's NMS (and, with ``roi_align`` or ``roi_pool``, its
-    ROIAlign or ROIPool forward) through the plain versions, for a
-    comparison with the kernels; never on a path whose launches are
-    counted."""
+    ROIAlign or ROIPool and ROILoopPool forwards) through the plain
+    versions, for a comparison with the kernels; never on a path whose
+    launches are counted."""
     from sos_wsod_torch.ops import nms as nms_ops
     from sos_wsod_torch.ops import roi_align as align_ops
+    from sos_wsod_torch.ops import roi_loop_pool as loop_ops
     from sos_wsod_torch.ops import roi_pool as pool_ops
 
-    saved = nms_ops.nms_keep_sorted_cuda, align_ops.roi_align_fwd_cuda, pool_ops.roi_pool_fwd_cuda
+    saved = (nms_ops.nms_keep_sorted_cuda, align_ops.roi_align_fwd_cuda,
+             pool_ops.roi_pool_fwd_cuda, loop_ops.roi_loop_pool_fwd_cuda)
     nms_ops.nms_keep_sorted_cuda = nms_ops.greedy_keep_sorted_reference
     if roi_align:
         def plain_align(features, boxes, valid, level, scales, **kw):
@@ -411,11 +451,17 @@ def _plain_versions(roi_align: bool = False, roi_pool: bool = False):
             out, pos = pool_ops.roi_pool_reference(feat, hs, he, ws, we, valid, row_scale)
             return out, (pos if return_argmax else None)
         pool_ops.roi_pool_fwd_cuda = plain_pool
+
+        def plain_loop(feat, hs, he, ws, we, ex, valid, row_scale, return_argmax=True):
+            out, pos = loop_ops.roi_loop_pool_reference(feat, hs, he, ws, we, ex, valid,
+                                                        row_scale)
+            return out, (pos if return_argmax else None)
+        loop_ops.roi_loop_pool_fwd_cuda = plain_loop
     try:
         yield
     finally:
         (nms_ops.nms_keep_sorted_cuda, align_ops.roi_align_fwd_cuda,
-         pool_ops.roi_pool_fwd_cuda) = saved
+         pool_ops.roi_pool_fwd_cuda, loop_ops.roi_loop_pool_fwd_cuda) = saved
 
 
 def phase_nms_vs_plain(device) -> dict:
@@ -521,6 +567,23 @@ def phase_roi_align_bwd_vs_plain(device) -> dict:
     r = res[f"{bench.CANVAS[0]}x{bench.CANVAS[1]} bfloat16"]
     return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+
+def phase_loop_pool_vs_plain(device) -> dict:
+    """Kernel E at the production shape, bf16 and f32, and on the
+    adversarial map (empty rings, boxes on the image edge, invalid rows,
+    zero and negative blocks; 136 and 3 channels): torch.equal to the plain
+    version with and without pos and scale; its backward (A bwd over the 3P
+    rows) bit-identical to the plain backward run on the CPU and across two
+    launches; times as called and on the device beside the bound and the
+    plain version's (sos_wsod_torch/tools/bench_roi_loop_pool.py)."""
+    from sos_wsod_torch.tools import bench_roi_loop_pool as bench
+
+    res = bench.run(device, iters=20, seed=SEED)
+    bench.report(res, log=lambda msg: log("kernel", msg))
+    r = res["bfloat16"]
+    return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None}
 
 
 def phase_slice(device, smi: str) -> int:
@@ -2044,6 +2107,177 @@ def phase_data_parallel(smi: str, device: str = "cuda") -> dict:
     return launches
 
 
+def _single_view_counts():
+    """Launches of kernels A fwd, A bwd, C (both NMS kernels, once) and E."""
+    from sos_wsod_torch.kernels import roi_loop_pool as loop, roi_pool as fwd, roi_pool_bwd as bwd
+
+    return fwd.launches, bwd.launches, _nms_launches(), loop.launches
+
+
+def _set_single_view_counts(counts) -> None:
+    from sos_wsod_torch.kernels import nms, roi_loop_pool as loop, roi_pool as fwd
+    from sos_wsod_torch.kernels import roi_pool_bwd as bwd
+
+    fwd.launches, bwd.launches, nms.mask_launches, loop.launches = counts
+    nms.sweep_launches = counts[2]
+
+
+def _plain_dets_equal(name: str, cfg, output: str, device) -> int:
+    """The first test image through ``predict`` of the checkpoint in
+    ``output``, as the evaluation runs it (inference mode, the config's
+    autocast), with the kernels and then on the all-plain path (plain pools
+    and NMS): the detections must be equal. Returns the detection count."""
+    from sos_wsod_torch.data.build import build_stage1_test_loader
+    from sos_wsod_torch.engine.checkpoint import Checkpointer
+    from sos_wsod_torch.engine.weights import load_weights
+    from sos_wsod_torch.models.meta.rcnn_wsl_single import build_stage1_model
+
+    state = Checkpointer(output).load("model_final", map_location=device)
+    model = load_weights(build_stage1_model(cfg, device="meta"), state["model"], device)
+    sample = next(iter(build_stage1_test_loader(cfg, cfg.DATASETS.TEST[0])))
+    batch = {k: torch.as_tensor(v, device=device) for k, v in sample.items() if k != "image_id"}
+
+    def predict():
+        with torch.inference_mode(), torch.autocast(
+                torch.device(device).type, dtype=torch.bfloat16,
+                enabled=model.compute_dtype == torch.bfloat16):
+            det = model.predict(batch)[0]
+        return [t.cpu() for t in (det.boxes, det.scores, det.classes, det.valid)]
+
+    kernel = predict()
+    with _plain_versions(roi_pool=True):
+        plain = predict()
+    if not all(torch.equal(a, b) for a, b in zip(kernel, plain)):
+        raise AssertionError(f"single-view {name}: detections with the kernels differ from the "
+                             "all-plain path's")
+    if not torch.isfinite(kernel[1]).all():
+        raise AssertionError(f"single-view {name}: non-finite scores")
+    return int(kernel[3].sum())
+
+
+def phase_single_view(device, smi: str) -> dict:
+    """Each single-view head (GeneralizedRCNNWSL: WSDDN, OICR, PCL, CMIL,
+    ContextLocNet) through the stage-1 CLI at full width on a synthetic VOC
+    tree, random weights from the seed, bf16 autocast: SINGLE_VIEW_STEPS
+    steps (CMIL: 2, then --resume to 3; its loss reads the step), the eval
+    after training, then --eval-only on the checkpoint; every loss finite,
+    the launches of kernels A fwd, A bwd, C and E a step and an image, one
+    image's detections with the kernels equal to the all-plain path's;
+    prints each head's warm step, peak memory, the device's busy share and
+    the host and device ms by range of its profiled last step. Returns the
+    launches of the runs."""
+    from sos_wsod_torch.engine.defaults import default_argument_parser
+    from sos_wsod_torch.engine.synthetic import load_config, write_synthetic_voc
+    from sos_wsod_torch.tools import train_net_stage1 as cli
+
+    cli_trainer = cli.Stage1Trainer
+    ProbeTrainer = _probe_trainer(cli_trainer, _single_view_counts, SINGLE_VIEW_STEPS)
+    n_test = dict(SINGLE_VIEW_SPLITS)["test"]
+    total = dict.fromkeys(("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_loop_pool_fwd"), 0)
+    records = _LogRecords()
+    root = logging.getLogger()
+    saved = (root.handlers[:], root.level)
+    logging.getLogger(cli.__name__).addHandler(records)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_synthetic_voc(tmp, SINGLE_VIEW_SPLITS, RAW_HW, NUM_PROPOSALS, SEED)
+        log("single-view", f"synthetic VOC tree {dict(SINGLE_VIEW_SPLITS)} of {RAW_HW} with "
+                           f"{NUM_PROPOSALS} proposals each in {time.perf_counter() - t0:.1f} s; "
+                           f"{SINGLE_VIEW_OPTS + SINGLE_VIEW_CUT}")
+        os.chdir(tmp)
+        cli.Stage1Trainer = ProbeTrainer
+        try:
+            for head, head_opts in SINGLE_VIEW_HEADS.items():
+                opts = [*SINGLE_VIEW_OPTS, "MODEL.ROI_HEADS.NAME", f"{head}ROIHeads", *head_opts,
+                        *SINGLE_VIEW_CUT, *SINGLE_VIEW_EXTRA, "OUTPUT_DIR", f"out_{head}"]
+                cfg = load_config(str(CONFIG), opts)
+
+                def run(*flags, steps=SINGLE_VIEW_STEPS):
+                    return cli.main(default_argument_parser().parse_args(
+                        ["--config-file", str(CONFIG), *flags, *opts, "SOLVER.MAX_ITER",
+                         str(steps)]))
+
+                ProbeTrainer.runs.clear()
+                _set_single_view_counts((0, 0, 0, 0))
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                if head == "CMIL":
+                    run(steps=SINGLE_VIEW_STEPS - 1)
+                    trainer = run("--resume")
+                else:
+                    trainer = run()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                trained = _single_view_counts()
+                results = run("--eval-only")
+                torch.cuda.synchronize()
+                launches = _single_view_counts()
+                n_dets = _plain_dets_equal(head, cfg, f"out_{head}", device)
+                _set_single_view_counts(launches)   # the comparison's launches do not count
+                for k, v in zip(total, launches):
+                    total[k] += v
+
+                probes = ProbeTrainer.runs
+                steps = [ms for pr in probes for ms in pr.step_ms]
+                step_launches = [lc for pr in probes for lc in pr.step_launches]
+                scalars = [sc for pr in probes for sc in pr.step_scalars]
+                loop_head = head == "ContextLocNet"
+                per_step = (0, 1, 0, 1) if loop_head else (1, 1, 0, 0)
+                per_image = (0, 0, 1, 1) if loop_head else (1, 0, 1, 0)
+                if step_launches != [per_step] * SINGLE_VIEW_STEPS:
+                    raise AssertionError(f"single-view {head}: launches (A fwd, A bwd, C, E) "
+                                         f"per step {step_launches}, expected {per_step}")
+                evals = 2 if head == "CMIL" else 1     # the evals after training
+                want_train = tuple(SINGLE_VIEW_STEPS * a + evals * n_test * b
+                                   for a, b in zip(per_step, per_image))
+                want_eval = tuple(n_test * b for b in per_image)
+                got_eval = tuple(a - b for a, b in zip(launches, trained))
+                if (trained, got_eval) != (want_train, want_eval):
+                    raise AssertionError(f"single-view {head}: launches (A fwd, A bwd, C, E) of "
+                                         f"the training runs {trained}, of --eval-only "
+                                         f"{got_eval}; expected {want_train}, {want_eval}")
+                for step, sc in enumerate(scalars):
+                    losses = {k: v for k, v in sc.items() if k.startswith("loss")}
+                    if "loss_cls" not in losses or not np.isfinite(
+                            list(losses.values()) + [sc["total_loss"]]).all():
+                        raise AssertionError(f"single-view {head} step {step}: {sc}")
+                ran = [(pr.start_iter, pr.iter) for pr in probes]
+                if head == "CMIL" and ran != [(0, 2), (2, 3)]:
+                    raise AssertionError(f"CMIL: the runs went from and to {ran}")
+                ap = results["voc_2007_test"]["bbox"]["AP50"]
+                if not np.isfinite(ap):
+                    raise AssertionError(f"single-view {head}: AP50 {ap}")
+                warm = statistics.median(steps[1:-1])
+                host, dev, other = _range_ms(probes[-1].prof, SINGLE_VIEW_RANGES)
+                busy = sum(dev.values()) + other
+                log("single-view", f"{head}: {len(steps)} steps in {secs:.1f} s with the evals"
+                    + (" (2, then --resume from its checkpoint to 3)" if head == "CMIL" else "")
+                    + "; losses " + "; ".join(
+                        ", ".join(f"{k} {v:.4f}" for k, v in sc.items() if k.startswith("loss"))
+                        for sc in scalars)
+                    + f"; step ms {[round(t, 1) for t in steps]}, warm {warm:.1f} ms = "
+                    f"{1e3 / warm:.2f} img/s; peak memory {peak_gb:.2f} GB; launches A fwd, "
+                    f"A bwd, C, E a step {per_step}, an eval image {per_image}; eval-only AP50 "
+                    f"{ap:.3f}; first test image's {n_dets} detections equal to the all-plain "
+                    f"path's on {smi}")
+                log("single-view", f"{head} profiled step, range host/device ms: " +
+                    ", ".join(f"{n} {host[n]:.2f}/{dev[n]:.2f}" for n in SINGLE_VIEW_RANGES) +
+                    f", device outside the ranges {other:.2f}; busy {busy:.2f} of "
+                    f"{steps[-1]:.2f} ms ({100 * busy / steps[-1]:.1f}%, profiler on)")
+                shutil.rmtree(f"out_{head}")
+        finally:
+            cli.Stage1Trainer = cli_trainer
+            os.chdir(cwd)
+            logging.getLogger(cli.__name__).removeHandler(records)
+            for h in root.handlers:
+                if h not in saved[0]:
+                    h.close()
+            root.handlers[:], root.level = saved
+    return total
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging its wall seconds."""
     t0 = time.perf_counter()
@@ -2064,6 +2298,7 @@ def main() -> int:
     nms_times = timed("4b NMS", phase_nms_vs_plain, device)
     align_times = timed("4c ROIAlign forward", phase_roi_align_vs_plain, device)
     align_bwd_times = timed("4d ROIAlign backward", phase_roi_align_bwd_vs_plain, device)
+    loop_times = timed("4e ROILoopPool forward", phase_loop_pool_vs_plain, device)
     infer_launches = timed("5 stage-1 inference", phase_slice, device, smi)
     train_launches = timed("6 stage-1 training", phase_train, device, smi)
     gather = timed("7 gather", phase_gather, device)
@@ -2073,14 +2308,16 @@ def main() -> int:
     stage3_train_launches = timed("12 stage-3 split and training", phase_stage3_train, smi)
     pipeline_launches = timed("13 pipeline and TTA", phase_pipeline, smi)
     ddp_launches = timed("14 data parallel", phase_data_parallel, smi)
+    single_launches = timed("15 single-view heads", phase_single_view, device, smi)
     paths = {"stage-1 inference": infer_launches, "stage-1 training": train_launches,
              "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches,
              "stage-2 training": stage2_train_launches,
              "stage-3 split and training": stage3_train_launches,
-             "pipeline and TTA": pipeline_launches, "data parallel": ddp_launches}
+             "pipeline and TTA": pipeline_launches, "data parallel": ddp_launches,
+             "single-view heads": single_launches}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd",
-                          "roi_align_bwd")}
+                          "roi_align_bwd", "roi_loop_pool_fwd")}
     log("kernels", "launches by path: " + "; ".join(
         f"{name} {p}" for name, p in paths.items()) +
         f"; gather_rows: bench_gather {gather['launches']}")
@@ -2100,7 +2337,11 @@ def main() -> int:
          **align_times},
         {"name": "roi_align_bwd", "route": "cuda", "source": "sos_wsod_torch/csrc/roi_align_bwd.cu",
          "replaces": "sos_wsod_tpu/ops/roi_align.py:52 (autodiff)",
-         "launches": launches["roi_align_bwd"], **align_bwd_times}]}))
+         "launches": launches["roi_align_bwd"], **align_bwd_times},
+        {"name": "roi_loop_pool_fwd", "route": "cuda",
+         "source": "sos_wsod_torch/csrc/roi_loop_pool_fwd.cu",
+         "replaces": "sos_wsod_tpu/ops/roi_loop_pool.py:55",
+         "launches": launches["roi_loop_pool_fwd"], **loop_times}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

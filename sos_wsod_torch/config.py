@@ -227,6 +227,7 @@ def get_cfg() -> CfgNode:
                          "MIN_SIZES": (400, 500, 600, 700, 800, 900, 1000, 1100, 1200),
                          "MAX_SIZE": 4000, "FLIP": True}},
         "WSL": {"ITER_SIZE": 1, "MEAN_LOSS": True, "REFINE_NUM": 3,
+                "SIZE_EPOCH": 5000,   # CMIL's continuation schedule
                 "REFINE_REG": [False, False, False], "REFINE_MIST": False,
                 "MIST_P": 0.10, "MIST_THRE": 0.05, "MIST_TYPE": "nms"},
         "OICRPLUS": {"BBOX_UPDATE": False},

@@ -5,9 +5,9 @@ get_detection_dataset_dicts, TrainingSampler and aspect-ratio grouping):
   - ``get_detection_dataset_dicts``: the catalog's dicts with their
     precomputed proposals, images without annotations dropped on request;
   - training: an infinite seeded shuffle, rank-strided across processes;
-    mapped 4-view samples binned by aspect (tall vs wide) and proposal
-    capacity, each batch re-padded to the largest bucketed canvas of its
-    members, per scale;
+    mapped samples (4-view, or single-view for GeneralizedRCNNWSL) binned by
+    aspect (tall vs wide) and proposal capacity, each batch re-padded to the
+    largest bucketed canvas of its members, per scale;
   - test: ``DatasetMapperTest``, one resized image and its proposals per
     sample, in dataset order.
 Rank and world size come from ``torch.distributed`` when it is initialized.
@@ -26,6 +26,7 @@ from . import transforms as T
 from .catalog import DatasetCatalog
 from .mapper_multi import (
     DatasetMapperMultiInput,
+    DatasetMapperSingle,
     _nonempty,
     bucket_shape,
     pad_image,
@@ -79,15 +80,22 @@ def training_index_stream(n: int, seed: int = 0, shuffle: bool = True, rank: int
     return itertools.islice(gen(), rank, None, world) if world > 1 else gen()
 
 
-_CANVAS_KEYS = ("images_s1", "images_s2")
+def _canvases(sample: Dict[str, np.ndarray]) -> Dict[str, Tuple[int, int]]:
+    """A mapped sample's canvas sizes by key: the multi-input views'
+    (2, H, W, 3) images of each scale, or the single view's (H, W, 3)."""
+    if "images_s1" in sample:
+        return {k: sample[k].shape[1:3] for k in ("images_s1", "images_s2")}
+    return {"image": sample["image"].shape[:2]}
 
 
 def _repad_to(sample: Dict[str, np.ndarray], shapes: Dict[str, tuple]) -> Dict[str, np.ndarray]:
-    """Grow a mapped sample's (2, H, W, 3) canvases to the per-key (bh, bw)."""
+    """Grow a mapped sample's canvases to the per-key (bh, bw)."""
     out = dict(sample)
     for key, (bh, bw) in shapes.items():
-        if out[key].shape[1:3] != (bh, bw):
-            out[key] = np.stack([pad_image(im, bh, bw) for im in out[key]])
+        if _canvases(out)[key] != (bh, bw):
+            im = out[key]
+            out[key] = (pad_image(im, bh, bw) if im.ndim == 3
+                        else np.stack([pad_image(v, bh, bw) for v in im]))
     return out
 
 
@@ -97,8 +105,8 @@ def batched_stream(dataset_dicts: List[dict],
                    size_divisibility: int = 64, num_workers: int = 0,
                    aspect_ratio_grouping: bool = True, rank: int = 0, world: int = 1
                    ) -> Iterator[List[Dict[str, np.ndarray]]]:
-    """Yield lists of ``batch_size`` mapped 4-view samples that share one
-    canvas shape per scale, from process ``rank`` of ``world``'s share of
+    """Yield lists of ``batch_size`` mapped samples (4-view or single-view)
+    that share one canvas shape per scale, from process ``rank`` of ``world``'s share of
     the index stream. A mapper returning None skips the image. With
     ``num_workers`` > 0, ``mapper.plan(d)`` draws each image's random
     transforms on the calling thread in stream order and that many threads
@@ -128,29 +136,30 @@ def batched_stream(dataset_dicts: List[dict],
 
     buckets: Dict[tuple, List[Dict[str, np.ndarray]]] = {}
     for s in mapped():
-        h, w = s["images_s1"].shape[1:3]
+        h, w = next(iter(_canvases(s).values()))
         b = (int(h > w) if aspect_ratio_grouping else 0, s["prop_valid"].shape[-1])
         buckets.setdefault(b, []).append(s)
         if len(buckets[b]) == batch_size:
             group, buckets[b] = buckets[b], []
-            shapes = {key: bucket_shape(max(g[key].shape[1] for g in group),
-                                        max(g[key].shape[2] for g in group), size_divisibility)
-                      for key in _CANVAS_KEYS}
+            sizes = [_canvases(g) for g in group]
+            shapes = {key: bucket_shape(max(c[key][0] for c in sizes),
+                                        max(c[key][1] for c in sizes), size_divisibility)
+                      for key in sizes[0]}
             yield [_repad_to(g, shapes) for g in group]
 
 
 def build_stage1_train_loader(cfg, mapper=None):
-    """Infinite stream of stage-1 4-view batches over DATASETS.TRAIN with
-    their proposal files. SOLVER.IMS_PER_BATCH is the global batch; each
-    process maps its 1/world share of it."""
-    if mapper is None and cfg.MODEL.META_ARCHITECTURE != "MultiInputRCNN":
-        raise NotImplementedError(
-            f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: only the multi-input "
-            "stage-1 model (MultiInputRCNN) is ported; the single-view mapper is not")
+    """Infinite stream of stage-1 batches over DATASETS.TRAIN with their
+    proposal files: 4-view samples for MultiInputRCNN, single-view ones
+    (``DatasetMapperSingle``) for any other MODEL.META_ARCHITECTURE, as in
+    the JAX package. SOLVER.IMS_PER_BATCH is the global batch; each process
+    maps its 1/world share of it."""
+    if mapper is None:
+        mapper = (DatasetMapperMultiInput if cfg.MODEL.META_ARCHITECTURE == "MultiInputRCNN"
+                  else DatasetMapperSingle).from_cfg(cfg)
     dataset_dicts = get_detection_dataset_dicts(
         cfg.DATASETS.TRAIN, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
         proposal_files=cfg.DATASETS.PROPOSAL_FILES_TRAIN if cfg.MODEL.LOAD_PROPOSALS else None)
-    mapper = mapper or DatasetMapperMultiInput.from_cfg(cfg)
     rank, world = rank_and_world()
     if cfg.SOLVER.IMS_PER_BATCH % world:
         raise ValueError(f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} is not divisible "

@@ -25,7 +25,7 @@ from ..data.proposals import save_proposals
 from ..data.voc import CLASS_NAMES
 from ..models.backbones.resnet import DEPTH_BLOCKS
 from ..models.meta.rcnn import GeneralizedRCNN
-from ..models.meta.rcnn_wsl import MultiInputRCNN
+from ..models.meta.rcnn_wsl_single import build_stage1_model
 from .checkpoint import Checkpointer
 from .weights import load_weights, state_dict_from_d2_frcnn, state_dict_from_d2_wsl
 
@@ -142,13 +142,16 @@ def load_config(config_file: str, opts: Sequence = ()):
     return cfg
 
 
-def build_synthetic_model(cfg, device, seed: int) -> MultiInputRCNN:
-    """The model of ``cfg`` with random weights from ``seed`` on ``device``,
-    in eval mode."""
-    model = MultiInputRCNN.from_cfg(cfg, device="meta")
+def build_synthetic_model(cfg, device, seed: int):
+    """The stage-1 model of ``cfg`` (``build_stage1_model``: MultiInputRCNN
+    or GeneralizedRCNNWSL) with random weights from ``seed`` on ``device``,
+    in eval mode. The blobs are drawn for the OICR+ model; the weights a
+    model lacks (refinement branches of WSDDN and ContextLocNet, box
+    regressors of branches without regression) are dropped."""
+    model = build_stage1_model(cfg, device="meta")
     blobs = random_d2_wsl_blobs(seed, cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.WSL.REFINE_NUM,
                                 cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)
-    return load_weights(model, state_dict_from_d2_wsl(blobs), device)
+    return load_weights(model, state_dict_from_d2_wsl(blobs, keep=model.state_dict()), device)
 
 
 def write_stage1_checkpoint(output_dir: str, cfg, seed: int) -> str:

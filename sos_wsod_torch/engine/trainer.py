@@ -1,9 +1,10 @@
-"""Training loop: the hook-driven TrainerBase and the stage-1 OICR+ trainer.
+"""Training loop: the hook-driven TrainerBase and the stage-1 trainer.
 
 Counterpart of ``sos_wsod_tpu/engine/trainer.py`` (``TrainerBase``,
 ``make_stage1_train_step``, ``Stage1Trainer``), eager PyTorch in place of one
 jitted step:
-  - each image of a batch runs ``MultiInputRCNN.loss`` under bf16 autocast
+  - each image of a batch runs the model's ``loss`` (``MultiInputRCNN`` or
+    ``GeneralizedRCNNWSL``) under bf16 autocast
     when TPU.COMPUTE_DTYPE is bfloat16; losses and metrics are averaged over
     the batch, and ``total_loss`` sums the keys starting with "loss";
   - gradients accumulate over WSL.ITER_SIZE steps as their mean (the JAX
@@ -153,9 +154,13 @@ class DataParallelMixin:
 
 
 class Stage1Trainer(DataParallelMixin, TrainerBase):
-    """OICR+ multi-input trainer. ``data_iter`` yields a list of mapped
-    samples (``data.build.batched_stream``) or one sample; ``model`` is a
-    ``MultiInputRCNN``, and batches go to the device of its parameters."""
+    """Stage-1 trainer. ``data_iter`` yields a list of mapped samples
+    (``data.build.batched_stream``) or one sample; ``model`` is a
+    ``MultiInputRCNN`` (4 views an image) or a ``GeneralizedRCNNWSL`` (one),
+    and batches go to the device of its parameters. A model whose
+    ``uses_iter`` is set (CMIL) gets the step, ``iter``, as the loss's
+    ``cur_iter``, as the JAX step injects it; a resumed run goes on from
+    the checkpoint's."""
 
     def __init__(self, cfg, model, data_iter):
         super().__init__()
@@ -182,6 +187,7 @@ class Stage1Trainer(DataParallelMixin, TrainerBase):
         n = len(samples)
         updates = (self._micro_steps + 1) % self.iter_size == 0
         per_image = []
+        kwargs = {"cur_iter": self.iter} if getattr(self.model, "uses_iter", False) else {}
         for i, sample in enumerate(samples):
             with record_function("h2d"):
                 b = {k: torch.as_tensor(v, device=self.device)
@@ -189,7 +195,7 @@ class Stage1Trainer(DataParallelMixin, TrainerBase):
             # only the backward that completes an update all-reduces
             sync = updates and i == n - 1
             with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=bf16):
-                losses = self.run(lambda m: m.loss(b, self.generator), sync)
+                losses = self.run(lambda m: m.loss(b, self.generator, **kwargs), sync)
             total = sum(v for k, v in losses.items() if k.startswith("loss"))
             if not torch.isfinite(total):
                 raise FloatingPointError(f"Loss became {float(total.detach())} at iteration "

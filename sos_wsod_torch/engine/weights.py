@@ -8,12 +8,14 @@ The port's module names mirror the JAX package's parameter tree
 tree converts leaf by leaf: conv kernels HWIO -> OIHW, Dense kernels
 (in, out) -> (out, in), FrozenBN's four statistics as they are. The fc1 rows
 of the DAN and of the FPN box head stay in the (h, w, c) order the JAX tree
-already holds, because the port also pools channels-last.
+already holds, because the port also pools channels-last; a single-view
+(GeneralizedRCNNWSL) tree, whose DAN flattens NCHW ROIs in (c, h, w) order,
+has its fc1 reordered (``dan_channels_last=False``).
 """
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -22,8 +24,12 @@ from torch import nn
 logger = logging.getLogger(__name__)
 
 
-def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree (numpy or array-like leaves) -> port state dict."""
+def state_dict_from_flax(params: Mapping[str, Any], dan_channels_last: bool = True
+                         ) -> Dict[str, torch.Tensor]:
+    """Flax parameter tree (numpy or array-like leaves) -> port state dict.
+    ``dan_channels_last=False`` is for a tree whose DAN takes NCHW pooled
+    ROIs flattened in (c, h, w) order (the JAX GeneralizedRCNNWSL's): its
+    fc1 inputs are reordered to the port's (h, w, c)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping[str, Any], path: tuple) -> None:
@@ -42,6 +48,9 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             out[".".join(path + (name,))] = torch.from_numpy(np.ascontiguousarray(a))
 
     walk(params, ())
+    fc1 = "roi_heads.dan.fc1.weight"
+    if not dan_channels_last and fc1 in out:
+        out[fc1] = torch.from_numpy(np.ascontiguousarray(_fc1_channels_last(out[fc1].numpy())))
     return out
 
 
@@ -52,12 +61,17 @@ def _fc1_channels_last(w: np.ndarray, cells: int = 49) -> np.ndarray:
     return w.reshape(out_dim, in_dim // cells, cells).transpose(0, 2, 1).reshape(out_dim, in_dim)
 
 
-def state_dict_from_d2_wsl(blobs: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+def state_dict_from_d2_wsl(blobs: Mapping[str, np.ndarray],
+                           keep: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
     """d2-WSL checkpoint blobs (``[backbone.]plainX.convY.*``,
     ``roi_heads.box_head.fcY.*``, ``roi_heads.box_predictor.{cls,det}.*``,
-    ``roi_heads.box_refinery_K.*``) -> port state dict. The layouts are
-    torch's already; only fc1's inputs are reordered to channels-last. Other
-    keys are skipped with a log line."""
+    ``roi_heads.box_refinery_K.*``; the multi-input and the single-view
+    models share these names) -> port state dict. The layouts are torch's
+    already; only fc1's inputs are reordered to channels-last. Other keys are
+    skipped with a log line. With ``keep`` (a model's state-dict keys), the
+    converted weights the model has no place for are skipped too, with a log
+    line: the box regressor of a single-view OICR branch without regression,
+    the refinement branches of a WSDDN checkpoint loaded by another head."""
     out: Dict[str, torch.Tensor] = {}
     for key, v in blobs.items():
         parts = key.split(".")
@@ -77,6 +91,11 @@ def state_dict_from_d2_wsl(blobs: Mapping[str, np.ndarray]) -> Dict[str, torch.T
             logger.info("unmatched checkpoint key: %s", key)
             continue
         out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    if keep is not None:
+        keep = set(keep)
+        for name in sorted(set(out) - keep):
+            logger.info("checkpoint weight without a place in the model: %s", name)
+        out = {k: v for k, v in out.items() if k in keep}
     return out
 
 

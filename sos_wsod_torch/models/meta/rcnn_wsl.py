@@ -23,6 +23,15 @@ from ..heads.oicr_plus import OICRPlusHead
 from ..postprocess import fast_rcnn_inference_single
 
 
+def normalize_images(images: torch.Tensor, pixel_mean: Sequence[float],
+                     pixel_std: Sequence[float]) -> torch.Tensor:
+    """(N, H, W, 3) BGR raw -> (N, 3, H, W) normalized, channels_last memory."""
+    mean = torch.tensor(pixel_mean, dtype=torch.float32, device=images.device)
+    std = torch.tensor(pixel_std, dtype=torch.float32, device=images.device)
+    x = (images.float() - mean) / std
+    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
 class MultiInputRCNN(nn.Module):
     def __init__(
         self,
@@ -68,11 +77,7 @@ class MultiInputRCNN(nn.Module):
         self.compute_dtype = compute_dtype
 
     def _normalize(self, images: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) BGR raw -> (N, 3, H, W) normalized, channels_last memory."""
-        mean = torch.tensor(self.pixel_mean, dtype=torch.float32, device=images.device)
-        std = torch.tensor(self.pixel_std, dtype=torch.float32, device=images.device)
-        x = (images.float() - mean) / std
-        return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return normalize_images(images, self.pixel_mean, self.pixel_std)
 
     def _pool(self, feat: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
               row_scale: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,218 @@
+"""GeneralizedRCNNWSL: the single-view WSOD meta-architecture.
+
+Counterpart of ``sos_wsod_tpu/models/meta/rcnn_wsl_single.py`` (the
+reference's GeneralizedRCNNWSL): VGG16 with dilated conv5 (stride 8) on one
+image, its precomputed proposals, a pooler, and one of the WSOD ROI heads:
+WSDDN, OICR, PCL, CMIL or ContextLocNet. The ROIPool pooler (kernel A)
+feeds every head but ContextLocNet, which takes the ROILoopPool pooler
+(kernel E): its [box; frame; context] rows. Both poolers fuse the objectness
+weighting (objectness + 1) that the JAX heads apply after the pool; the
+scale is at least 1, so the two orders give the same values.
+
+Not ported yet, and refused with NotImplementedError: the CSC and WSJDS
+heads (they need CPG maps, the ASPP head and the dense CRF), the ws_resnet
+backbone, and the ROIAlign / ROIAlignV2 poolers.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from ...core.instances import Detections
+from ...ops.roi_loop_pool import roi_loop_pool
+from ...ops.roi_pool import roi_pool
+from ..backbones.vgg import VGG16
+from ..heads.cmil import CMILROIHead
+from ..heads.contextlocnet import ContextLocNetROIHead
+from ..heads.pcl import PCLROIHead
+from ..heads.single_view import OICRROIHead, WSDDNROIHead
+from ..postprocess import fast_rcnn_inference_single
+from .rcnn_wsl import MultiInputRCNN, normalize_images
+
+# the reference's ROI_HEADS.NAME -> head
+HEAD_NAME_MAP = {
+    "WSDDNROIHeads": "WSDDN",
+    "OICRROIHeads": "OICR",
+    "PCLROIHeads": "PCL",
+    "CMILROIHeads": "CMIL",
+    "ContextLocNetROIHeads": "ContextLocNet",
+    "CSCROIHeads": "CSC",
+    "WSJDSROIHeads": "WSJDS",
+}
+PORTED_HEADS = ("WSDDN", "OICR", "PCL", "CMIL", "ContextLocNet")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"GeneralizedRCNNWSL: {what} is not ported to sos_wsod_torch yet; it belongs to a "
+        "later slice of the port (ROADMAP.md, Queue 1)")
+
+
+class GeneralizedRCNNWSL(nn.Module):
+    def __init__(
+        self,
+        num_classes: int = 20,
+        head: str = "WSDDN",
+        backbone_name: str = "vgg16",
+        pixel_mean: Sequence[float] = (103.939, 116.779, 123.68),  # BGR
+        pixel_std: Sequence[float] = (1.0, 1.0, 1.0),
+        conv5_dilation: int = 2,
+        freeze_at: int = 2,
+        pooler_type: str = "ROIPool",
+        pooler_resolution: int = 7,
+        refine_k: int = 3,
+        refine_reg: Sequence[bool] = (False, False, False),
+        mean_loss: bool = True,
+        dan_dims: Sequence[int] = (4096, 4096),
+        dan_dropout: float = 0.5,
+        score_thresh: float = 1e-6,
+        nms_thresh: float = 0.3,
+        detections_per_image: int = 100,
+        size_epoch: int = 5000,
+        max_iter: int = 200000,
+        compute_dtype: torch.dtype = torch.float32,
+        device=None,
+    ):
+        super().__init__()
+        if head in ("CSC", "WSJDS"):
+            raise _not_ported(f"the {head} head (CPG maps, the ASPP head and the dense CRF)")
+        if head not in PORTED_HEADS:
+            raise ValueError(f"Unknown WSL head {head!r}")
+        if backbone_name == "ws_resnet":
+            raise _not_ported("the ws_resnet backbone (dilated ResNet with deformable convs)")
+        if backbone_name != "vgg16":
+            raise ValueError(f"Unknown WSL backbone {backbone_name!r}")
+        if pooler_type in ("ROIAlign", "ROIAlignV2"):
+            raise _not_ported(f"the {pooler_type} pooler of the single-view model")
+        if pooler_type not in ("ROIPool", "ROILoopPool"):
+            raise ValueError(f"Unsupported pooler {pooler_type!r}")
+        if (head == "ContextLocNet") != (pooler_type == "ROILoopPool"):
+            raise ValueError("ContextLocNet takes the ROILoopPool pooler and the other heads "
+                             f"ROIPool; got {head} with {pooler_type}")
+        self.backbone = VGG16(conv5_dilation=conv5_dilation, freeze_at=freeze_at, device=device)
+        in_features = 512 * pooler_resolution ** 2
+        common = dict(num_classes=num_classes, mean_loss=mean_loss, dan_dims=tuple(dan_dims),
+                      dan_dropout=dan_dropout, device=device)
+        if head == "WSDDN":
+            self.roi_heads = WSDDNROIHead(in_features, **common)
+        elif head == "OICR":
+            self.roi_heads = OICRROIHead(in_features, refine_k=refine_k,
+                                         refine_reg=tuple(refine_reg), **common)
+        elif head == "PCL":
+            self.roi_heads = PCLROIHead(in_features, refine_k=refine_k, **common)
+        elif head == "CMIL":
+            self.roi_heads = CMILROIHead(in_features, refine_k=refine_k, size_epoch=size_epoch,
+                                         max_iter=max_iter, **common)
+        else:
+            self.roi_heads = ContextLocNetROIHead(in_features, **common)
+        self.head = head
+        self.pooler_type = pooler_type
+        self.pixel_mean = tuple(pixel_mean)
+        self.pixel_std = tuple(pixel_std)
+        self.stride = 8 if conv5_dilation == 2 else 16
+        self.pooler_resolution = pooler_resolution
+        self.score_thresh = score_thresh
+        self.nms_thresh = nms_thresh
+        self.detections_per_image = detections_per_image
+        self.compute_dtype = compute_dtype
+
+    @property
+    def uses_iter(self) -> bool:
+        """Whether ``loss`` reads the training step (CMIL's lambda)."""
+        return self.head == "CMIL"
+
+    def backbone_features(self, image: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
+        """(H, W, 3) BGR raw, (2,) valid extent -> plain5 as (H/8, W/8, 512)."""
+        x = normalize_images(image[None], self.pixel_mean, self.pixel_std)
+        return self.backbone(x, valid_hw[None]).permute(0, 2, 3, 1)[0]
+
+    def _pool(self, feat: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
+              objectness: torch.Tensor) -> torch.Tensor:
+        """feat (H, W, C) -> (P, 7, 7, C) with ROIPool, (3P, 7, 7, C) with
+        ROILoopPool, weighted by objectness + 1."""
+        res = (self.pooler_resolution, self.pooler_resolution)
+        pool = roi_pool if self.pooler_type == "ROIPool" else roi_loop_pool
+        return pool(feat, boxes, valid, objectness.float() + 1.0,
+                    spatial_scale=1.0 / self.stride, output_size=res)
+
+    def _pooled(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        with record_function("backbone"):
+            feat = self.backbone_features(batch["image"], batch["valid_hw"])
+        with record_function("roi_pool"):
+            return self._pool(feat, batch["boxes"], batch["prop_valid"], batch["objectness"])
+
+    def loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+             cur_iter: int = 0) -> Dict[str, torch.Tensor]:
+        """One image. batch: image (H, W, 3) BGR raw (padded), valid_hw (2,),
+        boxes (P, 4), objectness (P,), prop_valid (P,) bool, gt_classes_oh
+        (K,). ``cur_iter`` is the training step (read by CMIL). Returns the
+        head's f32 loss terms; dropout draws from ``generator``. Profiler
+        ranges: ``backbone``, ``roi_pool`` and the head's."""
+        pooled = self._pooled(batch)
+        args = (pooled, batch["boxes"], batch["prop_valid"], batch["gt_classes_oh"], generator)
+        if self.head == "CMIL":
+            return self.roi_heads.losses(*args, cur_iter=cur_iter)
+        return self.roi_heads.losses(*args)
+
+    def predict_scores(self, batch: Dict[str, torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(all_scores (P, K+1) background last, all_boxes (P, K*4) or the
+        proposals (P, 4)), without the NMS."""
+        pooled = self._pooled(batch)
+        with record_function("box_head"):
+            return self.roi_heads.predict(pooled, batch["boxes"], batch["prop_valid"])
+
+    def predict(self, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[Detections, torch.Tensor, torch.Tensor]:
+        """Single-image inference, the batch of ``MultiInputRCNN.predict``
+        (image, valid_hw, boxes, objectness, prop_valid, image_hw). Returns
+        (Detections, all_scores, all_boxes). Profiler ranges ``backbone``,
+        ``roi_pool``, ``box_head``, ``nms_topk``."""
+        scores, pred_boxes = self.predict_scores(batch)
+        with record_function("nms_topk"):
+            det = fast_rcnn_inference_single(
+                pred_boxes, scores, batch["prop_valid"], batch["image_hw"],
+                score_thresh=self.score_thresh, nms_thresh=self.nms_thresh,
+                topk=self.detections_per_image)
+        return det, scores, pred_boxes
+
+    @classmethod
+    def from_cfg(cls, cfg, device=None, **overrides) -> "GeneralizedRCNNWSL":
+        head = HEAD_NAME_MAP.get(cfg.MODEL.ROI_HEADS.NAME, cfg.MODEL.ROI_HEADS.NAME)
+        kw = dict(
+            num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
+            head=head,
+            backbone_name=("ws_resnet" if "resnet" in cfg.MODEL.BACKBONE.NAME.lower()
+                           else "vgg16"),
+            pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+            pixel_std=tuple(cfg.MODEL.PIXEL_STD),
+            conv5_dilation=cfg.MODEL.VGG.CONV5_DILATION,
+            freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
+            pooler_type=cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE,
+            pooler_resolution=cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION,
+            refine_k=cfg.WSL.REFINE_NUM,
+            refine_reg=tuple(cfg.WSL.REFINE_REG),
+            mean_loss=cfg.WSL.MEAN_LOSS,
+            dan_dims=tuple(cfg.MODEL.ROI_BOX_HEAD.DAN_DIM),
+            score_thresh=cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST,
+            nms_thresh=cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
+            detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
+            size_epoch=cfg.WSL.SIZE_EPOCH,
+            max_iter=cfg.SOLVER.MAX_ITER,
+            compute_dtype=(torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+                           else torch.float32),
+        )
+        kw.update(overrides)
+        return cls(device=device, **kw)
+
+
+def build_stage1_model(cfg, device=None):
+    """The stage-1 model of ``cfg``, as the JAX CLI picks it:
+    ``MultiInputRCNN`` for that MODEL.META_ARCHITECTURE, else
+    ``GeneralizedRCNNWSL``."""
+    cls = (MultiInputRCNN if cfg.MODEL.META_ARCHITECTURE == "MultiInputRCNN"
+           else GeneralizedRCNNWSL)
+    return cls.from_cfg(cfg, device=device)

@@ -2,7 +2,10 @@
 
 Counterpart of ``tools/train_net_stage1.py`` (the reference's
 train_net_multi.py): setup -> model -> Stage1Trainer with its hooks ->
-resume -> train; ``--eval-only`` runs the VOC evaluator over each of
+resume -> train. The model is MultiInputRCNN for that
+MODEL.META_ARCHITECTURE and GeneralizedRCNNWSL (the single-view WSDDN, OICR,
+PCL, CMIL and ContextLocNet heads, MODEL.ROI_HEADS.NAME) for any other, as
+in the JAX CLI; ``--eval-only`` runs the VOC evaluator over each of
 DATASETS.TEST, and with WSODEVAL.SAVE_DETECTION_RESULT writes the
 detection-result JSON that stage 2 reads. The VOC sets and the extra WSL
 sets are registered under ``./datasets`` (``register_all_voc``,
@@ -48,7 +51,7 @@ from ..engine.trainer import Stage1Trainer
 from ..engine.weights import load_weights
 from ..evaluation.testing import verify_results
 from ..evaluation.voc_eval import PascalVOCDetectionEvaluator, annotations_from_dataset_dicts
-from ..models.meta.rcnn_wsl import MultiInputRCNN
+from ..models.meta.rcnn_wsl_single import build_stage1_model
 from ..parallel import comm
 from ..utils.events import CommonMetricPrinter, JSONWriter
 
@@ -97,10 +100,6 @@ def main(args, hooks=()):
     cfg = setup(args)
     register_all_voc()
     register_all_extra()
-    if cfg.MODEL.META_ARCHITECTURE != "MultiInputRCNN":
-        raise NotImplementedError(
-            f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: only the multi-input "
-            "stage-1 model (MultiInputRCNN) is ported")
     device = comm.local_device(cfg.MODEL.DEVICE)
     checkpointer = Checkpointer(cfg.OUTPUT_DIR)
 
@@ -110,7 +109,7 @@ def main(args, hooks=()):
             return OrderedDict()
         name = checkpointer.get_last_checkpoint() or "model_final"
         state = checkpointer.load(name, map_location=device)
-        model = load_weights(MultiInputRCNN.from_cfg(cfg, device="meta"), state["model"], device)
+        model = load_weights(build_stage1_model(cfg, device="meta"), state["model"], device)
         logger.info("Loaded the model of %s (iteration %s)", checkpointer.path(name),
                     state.get("iter"))
         results = do_test(cfg, model)

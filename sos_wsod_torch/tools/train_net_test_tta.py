@@ -127,9 +127,11 @@ def eval_wsl_tta(cfg, args):
     over the views, then one NMS) or UNION (each view's detections, one NMS
     on the host)."""
     if cfg.MODEL.META_ARCHITECTURE != "MultiInputRCNN":
+        # the JAX tool builds MultiInputRCNN for any stage-1 config, which a
+        # single-view checkpoint does not fit
         raise NotImplementedError(
-            f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: only the multi-input "
-            "stage-1 model (MultiInputRCNN) is ported")
+            f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE!r}: test-time augmentation "
+            "of stage 1 runs the multi-input model (MultiInputRCNN) only")
     model = _load_params(cfg, args, MultiInputRCNN)
     device = next(model.parameters()).device
     keys = ("image", "valid_hw", "boxes", "objectness", "prop_valid", "image_hw")

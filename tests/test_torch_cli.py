@@ -411,14 +411,99 @@ def test_cli_trains_resumes_and_dumps_json_like_jax(tree, monkeypatch):
         np.testing.assert_allclose(g["bbox"], w["bbox"], rtol=0, atol=0.1 + 1e-9)
 
 
+SINGLE = ["MODEL.META_ARCHITECTURE", "GeneralizedRCNNWSL", "WSL.REFINE_NUM", "3",
+          "WSL.REFINE_REG", "[False, False, False]"]
+
+
 def test_cli_refuses_what_is_not_ported(tree, monkeypatch):
+    """GeneralizedRCNNWSL trains (below), but its CSC and WSJDS heads, the
+    ResNet backbone and the ROIAlign poolers belong to a later slice: the
+    CLI raises NotImplementedError naming it, before any training."""
     monkeypatch.chdir(tree)
     # more than one GPU is ported, through engine.launch: main alone refuses it
     with pytest.raises(RuntimeError, match="no process group"):
         cli.main(_args("--num-gpus", "2", opts=["OUTPUT_DIR", "refused"]))
-    with pytest.raises(NotImplementedError, match="MultiInputRCNN"):
-        cli.main(_args(opts=["OUTPUT_DIR", "refused", "MODEL.META_ARCHITECTURE",
-                             "GeneralizedRCNNWSL"]))
-    cfg = _tiny_cfg("MODEL.META_ARCHITECTURE", "GeneralizedRCNNWSL")
-    with pytest.raises(NotImplementedError, match="single-view"):
-        build.build_stage1_train_loader(cfg)
+    for opts, what in ((["MODEL.ROI_HEADS.NAME", "CSCROIHeads"], "CSC head"),
+                       (["MODEL.ROI_HEADS.NAME", "WSJDSROIHeads"], "WSJDS head"),
+                       (["MODEL.ROI_HEADS.NAME", "OICRROIHeads", "MODEL.BACKBONE.NAME",
+                         "build_ws_resnet_backbone"], "ws_resnet backbone"),
+                       (["MODEL.ROI_HEADS.NAME", "OICRROIHeads",
+                         "MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignV2"], "ROIAlignV2 pooler")):
+        with pytest.raises(NotImplementedError, match=f"{what}.*later slice"):
+            cli.main(_args(opts=["OUTPUT_DIR", "refused", *SINGLE, *opts]))
+    assert not (tree / "refused" / "model_final.pth").exists()
+
+
+def test_cli_trains_and_evaluates_single_view_oicr(tree, monkeypatch):
+    """The single-view OICR model (GeneralizedRCNNWSL) through the stage-1
+    CLI: 2 steps on single-view samples, the checkpoint, then --eval-only
+    over the test split with the detection JSON (the JAX package's
+    tests/test_pipeline_integration.py:test_single_view_train_cli)."""
+    monkeypatch.chdir(tree)
+    opts = ["OUTPUT_DIR", "single", *SINGLE, "MODEL.ROI_HEADS.NAME", "OICRROIHeads"]
+    trainer = cli.main(_args(opts=[*opts, "SOLVER.MAX_ITER", "2"]))
+    assert type(trainer.model).__name__ == "GeneralizedRCNNWSL" and trainer.iter == 2
+    hist = trainer.storage.histories()
+    assert {"loss_cls", "loss_cls_r0", "loss_cls_r1", "loss_cls_r2", "total_loss"} <= set(hist)
+    assert np.isfinite(hist["total_loss"].latest)
+    assert (tree / "single" / "model_final.pth").exists()
+    results = cli.main(_args("--eval-only", opts=[*opts, "WSODEVAL.SAVE_DETECTION_RESULT",
+                                                  "True"]))
+    assert np.isfinite(results["voc_2007_test"]["bbox"]["AP50"])
+    dets = json.loads((tree / "single" / "detection_results" / "oicr_plus_voc_2007_test.json")
+                      .read_text())
+    assert dets and all(np.isfinite([d["score"], *d["bbox"]]).all() for d in dets)
+
+
+@pytest.mark.parametrize("head,extra", [
+    ("WSDDN", []), ("PCL", []), ("CMIL", ["WSL.SIZE_EPOCH", "1"]),
+    ("ContextLocNet", ["MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROILoopPool"])])
+def test_cli_trains_and_evaluates_each_single_view_head(tree, monkeypatch, head, extra):
+    """Each other head through the CLI: a step, the JAX head's loss keys,
+    finite losses, then --eval-only on the checkpoint."""
+    monkeypatch.chdir(tree)
+    opts = ["OUTPUT_DIR", f"single_{head}", *SINGLE, "MODEL.ROI_HEADS.NAME", f"{head}ROIHeads",
+            *extra]
+    trainer = cli.main(_args(opts=[*opts, "SOLVER.MAX_ITER", "1"]))
+    keys = {"loss_cls"} | ({f"loss_cls_r{k}" for k in range(3)} if head in ("PCL", "CMIL")
+                           else set())
+    losses = {k for k in trainer.storage.histories() if k.startswith("loss")}
+    assert losses == keys
+    assert np.isfinite(trainer.storage.histories()["total_loss"].latest)
+    results = cli.main(_args("--eval-only", opts=opts))
+    assert np.isfinite(results["voc_2007_test"]["bbox"]["AP50"])
+
+
+def test_single_view_cmil_resume_goes_on_from_the_step(tree, tmp_path):
+    """CMIL's lambda reads the step: 3 straight steps against 1 step + save +
+    a fresh trainer + resume + 2, with WSL.SIZE_EPOCH 1 so that lambda moves
+    a lot from step to step: the same weights, momentum and generator bit for
+    bit, so the resumed run fed its loss the steps 1 and 2."""
+    cfg = _tiny_cfg(*SINGLE, "MODEL.ROI_HEADS.NAME", "CMILROIHeads", "WSL.SIZE_EPOCH", "1",
+                    "SOLVER.MAX_ITER", "100")
+    dicts = proposals.load_proposals_into_dataset(voc.load_voc_instances(_voc_dir(tree), "train"),
+                                                  _proposal_file(tree, "train"))
+    sample = build.DatasetMapperSingle.from_cfg(cfg)(dicts[0])
+
+    def trainer():
+        return Stage1Trainer(cfg, build_synthetic_model(cfg, "cpu", 0),
+                             iter([[sample]] * 3))
+
+    seen = []
+    straight = trainer()
+    loss = straight.model.loss
+    straight.model.loss = lambda *a, **kw: seen.append(kw["cur_iter"]) or loss(*a, **kw)
+    straight.train(0, 3)
+    assert seen == [0, 1, 2]
+    split = trainer()
+    split.train(0, 1)
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.save("model_0000000", split.state_dict())
+    resumed = trainer()
+    resumed.train(ckpt.resume_or_load(resumed), 3)
+    _assert_states_equal(_flat_state(straight), _flat_state(resumed))
+    cut = trainer()
+    cut.train(0, 1)
+    cut.train(0, 2)                       # the same steps with the step count restarted
+    assert not torch.equal(cut.model.roi_heads.box_refinery_0.cls_score.weight,
+                           straight.model.roi_heads.box_refinery_0.cls_score.weight)

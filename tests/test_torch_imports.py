@@ -16,6 +16,7 @@ import importlib, json, pkgutil, runpy, sys, tempfile
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["sos_wsod_tpu"] = None
+sys.modules["sklearn"] = None
 import sos_wsod_torch
 import torch
 torch.set_num_threads(1)   # beside pytest-xdist's other processes on the same cores
@@ -171,7 +172,31 @@ with tempfile.TemporaryDirectory() as tmp:
     for r in check_ddp.load_reports(tmp, 2):
         assert not r["foreign_modules"], r["foreign_modules"]
 
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu")
+# the single-view family (the path of chip_smoke's phase 15): each head of
+# GeneralizedRCNNWSL one step through the stage-1 CLI, PCL's clustering
+# without scikit-learn, then --eval-only for ContextLocNet (ROILoopPool)
+assert {"sos_wsod_torch.models.meta.rcnn_wsl_single", "sos_wsod_torch.models.heads.single_view",
+        "sos_wsod_torch.models.heads.pcl", "sos_wsod_torch.models.heads.cmil",
+        "sos_wsod_torch.models.heads.contextlocnet", "sos_wsod_torch.ops.pcl_loss",
+        "sos_wsod_torch.ops.roi_merge", "sos_wsod_torch.ops.kmeans",
+        "sos_wsod_torch.ops.roi_loop_pool", "sos_wsod_torch.kernels.roi_loop_pool",
+        "sos_wsod_torch.tools.bench_roi_loop_pool"} <= set(names)
+with tempfile.TemporaryDirectory() as tmp:
+    write_synthetic_voc(tmp, (("train", 1), ("test", 1)), (50, 70), 30, 0)
+    os.chdir(tmp)
+    for head in ("WSDDN", "OICR", "PCL", "CMIL", "ContextLocNet"):
+        sv_opts = [*cli_opts, "MODEL.META_ARCHITECTURE", "GeneralizedRCNNWSL",
+                   "MODEL.ROI_HEADS.NAME", head + "ROIHeads", "WSL.REFINE_NUM", "3",
+                   "WSL.REFINE_REG", "[False, False, False]", "OUTPUT_DIR", "sv_" + head]
+        if head == "ContextLocNet":
+            sv_opts += ["MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROILoopPool"]
+        for flags in ([], ["--eval-only"]) if head == "ContextLocNet" else ([],):
+            train_net_stage1.main(default_argument_parser().parse_args(
+                ["--config-file", str(smoke["CONFIG"]), *flags, *sv_opts]))
+    os.chdir(cwd)
+
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu", "sklearn")
              and sys.modules[m] is not None)
 assert not bad, bad
 print(len(names))
@@ -190,7 +215,9 @@ def test_port_and_chip_smoke_import_without_jax():
     stage 3: the split tool on a stage-2 checkpoint, then a burn-in step and
     a semi-supervised step on its dataseed; and the hand-offs: the stage-1
     dump of train, val and test, PGF and the multi-label tool, the _wsl
-    loader on their output, and the stage-1 TTA CLI."""
+    loader on their output, and the stage-1 TTA CLI; and a step of each
+    single-view head through the stage-1 CLI, with scikit-learn blocked
+    too."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
