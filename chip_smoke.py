@@ -47,12 +47,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
      backward's time on the card and index_add_'s alone for the same terms;
   4e. ROILoopPool forward vs plain: kernel E at the production shape
      (87 x 119 x 512, P = 4096 -> 3P rows [box; frame; context]) in bf16
-     and f32, and on an adversarial map (a zero and a negative block, boxes
-     covering the image, on its edges, below a cell, empty and invalid; 136
-     and 3 channels): torch.equal out and pos with and without pos and
-     scale; its backward (kernel A bwd over the 3P rows) bit-identical to
-     the plain backward run on the CPU and across two launches; times as
-     called and on the device beside the bound and the plain version's
+     and f32 and at the top training map (152 x 204 x 512) in bf16 (its
+     staged branch), at the production shape on a misaligned map (its
+     direct branch), and on an adversarial map (a zero and a negative
+     block, boxes covering the image, on its edges, below a cell, empty and
+     invalid; 136 channels staged, 3 direct): torch.equal out and pos with
+     and without pos and scale, the branch each case took (as the library
+     reports it); its backward (kernel A bwd over the 3P rows)
+     bit-identical to the plain backward run on the CPU and across two
+     launches at the production shape and on the adversarial map; times as
+     called and of the kernel on the device beside the bound, the plain
+     version's, the window cells read and the bytes of the map read from L2
      (sos_wsod_torch/tools/bench_roi_loop_pool.py);
   5. inference slice: the full-width VGG16 OICR+ model of
      configs/stage1/voc07_oicr_plus.yaml with random weights made from a
@@ -570,20 +575,32 @@ def phase_roi_align_bwd_vs_plain(device) -> dict:
 
 
 def phase_loop_pool_vs_plain(device) -> dict:
-    """Kernel E at the production shape, bf16 and f32, and on the
-    adversarial map (empty rings, boxes on the image edge, invalid rows,
-    zero and negative blocks; 136 and 3 channels): torch.equal to the plain
-    version with and without pos and scale; its backward (A bwd over the 3P
-    rows) bit-identical to the plain backward run on the CPU and across two
-    launches; times as called and on the device beside the bound and the
-    plain version's (sos_wsod_torch/tools/bench_roi_loop_pool.py)."""
+    """Kernel E at the production shape in bf16 and f32 and the top training
+    map in bf16 (the staged branch), at the production shape on a
+    misaligned map (the direct branch), and on the adversarial map (empty
+    rings, boxes on the image edge, invalid rows, zero and negative blocks;
+    136 channels staged, 3 direct): torch.equal to the plain version with
+    and without pos and scale, and the branch each case took; its backward
+    (A bwd over the 3P rows) bit-identical to the plain backward run on the
+    CPU and across two launches; times as called and on the device beside
+    the bound and the plain version's
+    (sos_wsod_torch/tools/bench_roi_loop_pool.py). The kernels line takes
+    the production shape's bf16 case."""
     from sos_wsod_torch.tools import bench_roi_loop_pool as bench
 
     res = bench.run(device, iters=20, seed=SEED)
     bench.report(res, log=lambda msg: log("kernel", msg))
+    want = {bench.case_name(hwc, dtype): "staged" for hwc, dtype in bench.RUN_CASES}
+    want[bench.case_name(bench.FEAT_HWC, torch.bfloat16) + " misaligned"] = "direct"
+    want["adversarial C=3 bfloat16"] = want["adversarial C=3 float32"] = "direct"
+    for name, branch in want.items():
+        if res[name]["branch"] != branch:
+            raise AssertionError(f"roi_loop_pool_fwd {name}: took the {res[name]['branch']} "
+                                 f"branch, expected {branch}")
     r = res["bfloat16"]
     return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None}
+            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "branch": r["branch"]}
 
 
 def phase_slice(device, smi: str) -> int:
@@ -2168,6 +2185,7 @@ def phase_single_view(device, smi: str) -> dict:
     launches of the runs."""
     from sos_wsod_torch.engine.defaults import default_argument_parser
     from sos_wsod_torch.engine.synthetic import load_config, write_synthetic_voc
+    from sos_wsod_torch.kernels import roi_loop_pool as loop_kernel
     from sos_wsod_torch.tools import train_net_stage1 as cli
 
     cli_trainer = cli.Stage1Trainer
@@ -2200,6 +2218,7 @@ def phase_single_view(device, smi: str) -> dict:
 
                 ProbeTrainer.runs.clear()
                 _set_single_view_counts((0, 0, 0, 0))
+                loop_kernel.branch_launches.update(staged=0, direct=0)
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 if head == "CMIL":
@@ -2214,6 +2233,7 @@ def phase_single_view(device, smi: str) -> dict:
                 results = run("--eval-only")
                 torch.cuda.synchronize()
                 launches = _single_view_counts()
+                branches = dict(loop_kernel.branch_launches)
                 n_dets = _plain_dets_equal(head, cfg, f"out_{head}", device)
                 _set_single_view_counts(launches)   # the comparison's launches do not count
                 for k, v in zip(total, launches):
@@ -2259,9 +2279,10 @@ def phase_single_view(device, smi: str) -> dict:
                         for sc in scalars)
                     + f"; step ms {[round(t, 1) for t in steps]}, warm {warm:.1f} ms = "
                     f"{1e3 / warm:.2f} img/s; peak memory {peak_gb:.2f} GB; launches A fwd, "
-                    f"A bwd, C, E a step {per_step}, an eval image {per_image}; eval-only AP50 "
-                    f"{ap:.3f}; first test image's {n_dets} detections equal to the all-plain "
-                    f"path's on {smi}")
+                    f"A bwd, C, E a step {per_step}, an eval image {per_image}"
+                    + (f" (E by branch {branches})" if loop_head else "")
+                    + f"; eval-only AP50 {ap:.3f}; first test image's {n_dets} detections "
+                    f"equal to the all-plain path's on {smi}")
                 log("single-view", f"{head} profiled step, range host/device ms: " +
                     ", ".join(f"{n} {host[n]:.2f}/{dev[n]:.2f}" for n in SINGLE_VIEW_RANGES) +
                     f", device outside the ranges {other:.2f}; busy {busy:.2f} of "
