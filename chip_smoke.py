@@ -186,7 +186,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
      checkpoint, the first test image's detections equal to the all-plain
      path's; prints each head's losses, warm step, peak memory, and the host
      and device ms by range and the device's busy share of its profiled
-     last step.
+     last step;
+ 16. the rest of the single-view family through the stage-1 CLI at full
+     width, with phase 15's options, cut and tree: the CSC head (VGG16,
+     ROIPool; its CPG maps before each loss), the WS-ResNet-50 backbone
+     (OICR, ROIPool: kernel A at 2048 channels) and the ROIAlignV2 pooler
+     (OICR on VGG16: kernels D and D bwd at one stride-8 level and 4096
+     ROIs): every step's losses finite, the launches of A fwd, A bwd, C, D
+     and D bwd a step and an eval image, the eval and --eval-only, the first
+     test image's detections equal to the all-plain path's; each run's warm
+     step, peak memory and ranges (``cpg`` and ``csc`` among them). Then one
+     CSC step from its checkpoint with csc_tau 0, so that every class the
+     image lists gets its CPG map: A bwd once in the ``cpg`` range for each
+     of them and once in ``backward``; the CSC op on those maps on the card
+     and on the CPU, W equal, and its time. Then A fwd and A bwd at
+     WS-ResNet-50's res5 (88 x 120 x 2048, P = 4096) and D and D bwd (V2 and
+     V1) at plain5 (87 x 119 x 512, P = 4096), each bit-identical to its
+     plain version (the backwards to theirs on the CPU), timed beside the
+     bound and index_add_; then one python -m
+     sos_wsod_torch.tools.train_imagenet --synthetic step for vgg16 and for
+     ws_resnet50 at 224 x 224, batch 32, its loss finite.
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the stage-1 inference throughput.
@@ -291,6 +310,21 @@ SINGLE_VIEW_SPLITS = (("train", 4), ("val", 2), ("test", 4))
 SINGLE_VIEW_EXTRA = []
 SINGLE_VIEW_RANGES = ("h2d", "backbone", "roi_pool", "box_head", "mining", "backward",
                       "optimizer")
+# phase 16: the CSC head, the WS-ResNet-50 backbone and the ROIAlignV2 pooler
+# through the stage-1 CLI, with phase 15's options, cut and tree
+SINGLE_VIEW_MORE = {
+    "CSC": ["MODEL.ROI_HEADS.NAME", "CSCROIHeads"],
+    "WS-ResNet-50": ["MODEL.ROI_HEADS.NAME", "OICRROIHeads", "MODEL.BACKBONE.NAME",
+                     "build_ws_resnet_backbone", "MODEL.RESNETS.DEPTH", "50"],
+    "ROIAlignV2": ["MODEL.ROI_HEADS.NAME", "OICRROIHeads", "MODEL.ROI_BOX_HEAD.POOLER_TYPE",
+                   "ROIAlignV2"],
+}
+SINGLE_VIEW_MORE_RANGES = ("h2d", "cpg", "backbone", "roi_pool", "box_head", "csc", "mining",
+                           "backward", "optimizer")
+WS_RESNET_HWC = (88, 120, 2048)    # res5 of WS-ResNet-50 on the 704 x 960 canvas, stride 8
+ALIGN_HWC = FEAT_HWC               # the ROIAlign pooler's one level: VGG16's plain5
+IMAGENET_ARGS = ["--synthetic", "--image-size", "224", "--batch-size", "32", "--max-iter", "1",
+                 "--log-period", "1"]
 
 
 def log(phase: str, msg: str) -> None:
@@ -2142,8 +2176,9 @@ def _set_single_view_counts(counts) -> None:
 def _plain_dets_equal(name: str, cfg, output: str, device) -> int:
     """The first test image through ``predict`` of the checkpoint in
     ``output``, as the evaluation runs it (inference mode, the config's
-    autocast), with the kernels and then on the all-plain path (plain pools
-    and NMS): the detections must be equal. Returns the detection count."""
+    autocast), with the kernels and then on the all-plain path (plain pools,
+    ROIAlign and NMS): the detections must be equal. Returns the detection
+    count."""
     from sos_wsod_torch.data.build import build_stage1_test_loader
     from sos_wsod_torch.engine.checkpoint import Checkpointer
     from sos_wsod_torch.engine.weights import load_weights
@@ -2162,7 +2197,7 @@ def _plain_dets_equal(name: str, cfg, output: str, device) -> int:
         return [t.cpu() for t in (det.boxes, det.scores, det.classes, det.valid)]
 
     kernel = predict()
-    with _plain_versions(roi_pool=True):
+    with _plain_versions(roi_align=True, roi_pool=True):
         plain = predict()
     if not all(torch.equal(a, b) for a, b in zip(kernel, plain)):
         raise AssertionError(f"single-view {name}: detections with the kernels differ from the "
@@ -2299,6 +2334,350 @@ def phase_single_view(device, smi: str) -> dict:
     return total
 
 
+def _more_counts():
+    """Launches of kernels A fwd, A bwd, C (both NMS kernels, once), D and
+    D bwd."""
+    from sos_wsod_torch.kernels import roi_align as align, roi_align_bwd as align_bwd
+    from sos_wsod_torch.kernels import roi_pool as fwd, roi_pool_bwd as bwd
+
+    return fwd.launches, bwd.launches, _nms_launches(), align.launches, align_bwd.launches
+
+
+def _set_more_counts(counts) -> None:
+    from sos_wsod_torch.kernels import nms, roi_align as align, roi_align_bwd as align_bwd
+    from sos_wsod_torch.kernels import roi_pool as fwd, roi_pool_bwd as bwd
+
+    fwd.launches, bwd.launches, nms.mask_launches, align.launches, align_bwd.launches = counts
+    nms.sweep_launches = counts[2]
+
+
+def _more_kernels(device, smi: str) -> None:
+    """Kernels A fwd and A bwd at WS-ResNet-50's res5 (WS_RESNET_HWC, bf16,
+    4000 proposals in 4096 slots), and D and D bwd at the ROIAlign pooler's
+    one stride-8 level (ALIGN_HWC, bf16, the same proposals, V2 and V1): each
+    bit-identical to its plain version (the backwards to theirs run on the
+    CPU, and across two launches); times as called beside the bound, the
+    library call's (index_add_ of the backward's terms) and, for D and D
+    bwd, the device time alone."""
+    from sos_wsod_torch.kernels.roi_align import roi_align_fwd_cuda
+    from sos_wsod_torch.kernels.roi_align_bwd import roi_align_bwd_cuda
+    from sos_wsod_torch.kernels.roi_pool import roi_pool_fwd_cuda
+    from sos_wsod_torch.kernels.roi_pool_bwd import roi_pool_bwd_cuda
+    from sos_wsod_torch.ops.roi_pool import bin_windows
+    from sos_wsod_torch.tools import bench_roi_align as align_bench
+    from sos_wsod_torch.tools.bench_roi_pool import (
+        bwd_inputs, bwd_traffic_bytes, check, check_bwd, index_add_ms)
+    from sos_wsod_torch.tools.measure import device_ms
+
+    h, w, c = WS_RESNET_HWC
+    feat32, boxes, valid, rs = production_pool_inputs(device, WS_RESNET_HWC, SEED)
+    feat = feat32.to(torch.bfloat16)
+    del feat32
+    win = bin_windows(boxes, valid, h, w, 7, 7, 1.0 / 8)
+    t0 = time.perf_counter()
+    check({"roi_pool_fwd_cuda": lambda f, wn, v, r, p: roi_pool_fwd_cuda(
+        f, *wn, v, r, return_argmax=p)}, feat, win, valid, rs)
+    ms = cuda_ms(lambda: roi_pool_fwd_cuda(feat, *win, valid, rs), 10)
+    bound = bound_ms(fwd_traffic_bytes(h, w, c, CAPACITY, 7, 7, 2, True))
+    log("single-view+", f"roi_pool_fwd bf16 feat {WS_RESNET_HWC} P={CAPACITY}: bit-identical "
+        f"out+argmax, without pos, without scale ({time.perf_counter() - t0:.1f} s); with pos "
+        f"{ms:.3f} ms (bound {bound:.4f} ms, {100 * bound / ms:.1f}% of it) on {smi}")
+    del feat, win
+    torch.cuda.empty_cache()
+    g, pos, rs_t, win, valid = bwd_inputs(device, WS_RESNET_HWC, torch.bfloat16, SEED)
+    t0 = time.perf_counter()
+    check_bwd({"roi_pool_bwd_cuda": (roi_pool_bwd_cuda, True)}, g, pos, rs_t, win, valid, h, w)
+    secs = time.perf_counter() - t0
+    ms = cuda_ms(lambda: roi_pool_bwd_cuda(g, pos, rs_t, *win, valid, h, w), 10)
+    lib_ms = index_add_ms(g, pos, rs_t, h, w, 5)
+    bound = bound_ms(bwd_traffic_bytes(h, w, c, CAPACITY, 7, 7, 2))
+    log("single-view+", f"roi_pool_bwd bf16 g {tuple(g.shape)} -> {WS_RESNET_HWC} f32: "
+        f"bit-identical to the plain version on the CPU and across two launches ({secs:.1f} "
+        f"s); kernel {ms:.3f} ms (bound {bound:.4f} ms, {100 * bound / ms:.1f}% of it), "
+        f"index_add_ {lib_ms:.3f} ms on {smi}")
+    del g, pos, rs_t, win
+    torch.cuda.empty_cache()
+
+    h, w, c = ALIGN_HWC
+    feat32, boxes, valid, _ = production_pool_inputs(device, ALIGN_HWC, SEED)
+    feats = [feat32.to(torch.bfloat16)]
+    del feat32
+    level = torch.zeros(CAPACITY, dtype=torch.int32, device=device)
+    scales = (1.0 / 8,)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    grad = torch.randn((CAPACITY, 7, 7, c), generator=gen, device=device).to(torch.bfloat16)
+    for aligned in (True, False):
+        name = "V2" if aligned else "V1"
+        args = (feats, boxes, valid, level, scales)
+        t0 = time.perf_counter()
+        align_bench.check(*args, aligned=aligned)
+        secs = time.perf_counter() - t0
+        ms = cuda_ms(lambda: roi_align_fwd_cuda(*args, aligned=aligned), 10)
+        dev = device_ms(lambda: roi_align_fwd_cuda(*args, aligned=aligned), 10)
+        b = align_bench.bounds(*args, aligned=aligned)
+        log("single-view+", f"roi_align_fwd {name} bf16 one level {ALIGN_HWC}, P={CAPACITY} "
+            f"(staged {b['staged']}, direct {b['direct']}): equal to the plain version "
+            f"({secs:.1f} s); kernel {ms:.4f} ms as called, {dev:.4f} ms device, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({100 * b['bound_ms'] / ms:.1f}% of "
+            f"the call; bytes {b['bytes_bound_ms']:.4f}, operations {b['ops_bound_ms']:.4f}: "
+            f"{b['ops']} f32 operations) on {smi}")
+        bargs = (grad, [(h, w)], boxes, valid, level, scales)
+        t0 = time.perf_counter()
+        align_bench.check_bwd(*bargs, aligned=aligned)
+        secs = time.perf_counter() - t0
+        ms = cuda_ms(lambda: roi_align_bwd_cuda(*bargs, aligned=aligned), 10)
+        dev = device_ms(lambda: roi_align_bwd_cuda(*bargs, aligned=aligned), 10)
+        pairs, terms = align_bench.tile_pairs(*bargs[1:], aligned=aligned)
+        lib_ms = (align_bench.index_add_bwd_ms(*bargs, iters=3, aligned=aligned)
+                  if aligned else float("nan"))
+        torch.cuda.empty_cache()
+        b = align_bench.bwd_bounds(*bargs, aligned=aligned)
+        log("single-view+", f"roi_align_bwd {name} bf16 g {tuple(grad.shape)} -> one level "
+            f"{ALIGN_HWC} ({b['samples']} samples, {terms} terms, {pairs} bin-tile pairs): "
+            f"bit-identical to the plain backward on the CPU and across two launches "
+            f"({secs:.1f} s); kernel {ms:.4f} ms as called, {dev:.4f} ms device, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({100 * b['bound_ms'] / ms:.1f}% of "
+            f"the call; bytes {b['bytes_bound_ms']:.4f}, operations {b['ops_bound_ms']:.4f}), "
+            f"index_add_ {lib_ms:.3f} ms on {smi}")
+    del feats, grad
+    torch.cuda.empty_cache()
+
+
+def _csc_cpg_step(cfg, output: str, device, smi: str) -> tuple:
+    """One more CSC step, from the checkpoint in ``output``, on a model with
+    csc_tau 0 (with random weights no image score reaches the config's 0.7,
+    and the CPG backward would never run): a Stage1Trainer on the first
+    batch of the CLI's loader whose image lists two classes or more,
+    profiled. A bwd must launch once in the ``cpg`` range for each
+    class the image lists, and once in ``backward``. Then the CSC op on
+    those CPG maps and the image's boxes on the card and on the CPU: W
+    equal; and how many f32 square roots of integers torch's card gets
+    otherwise than its CPU (the reason the op roots in f64). Returns the
+    step's launches (A fwd, A bwd, C, D, D bwd)."""
+    from sos_wsod_torch.data.build import build_stage1_train_loader
+    from sos_wsod_torch.engine.checkpoint import Checkpointer
+    from sos_wsod_torch.engine.trainer import Stage1Trainer
+    from sos_wsod_torch.engine.weights import load_weights
+    from sos_wsod_torch.kernels import roi_pool_bwd as bwd
+    from sos_wsod_torch.models.meta.rcnn_wsl_single import build_stage1_model
+    from sos_wsod_torch.ops.csc import csc
+
+    state = Checkpointer(output).load("model_final", map_location=device)
+    model = load_weights(build_stage1_model(cfg, device="meta"), state["model"], device)
+    model.csc_tau = 0.0
+    seen = []
+    compute_cpgs = model.compute_cpgs
+
+    def probe(batch, generator=None):
+        before = bwd.launches
+        cpgs = compute_cpgs(batch, generator)
+        seen.append((bwd.launches - before, int(batch["gt_classes_oh"].sum()), cpgs,
+                     batch["boxes"], batch["prop_valid"], batch["gt_classes_oh"]))
+        return cpgs
+
+    model.compute_cpgs = probe
+    loader = build_stage1_train_loader(cfg)
+
+    def listing_two():
+        """The stream's first batch whose image lists two classes or more
+        (within 16 batches), else its first."""
+        first = None
+        for _ in range(16):
+            batch = next(loader)
+            first = first or batch
+            if any(sample["gt_classes_oh"].sum() >= 2 for sample in batch):
+                yield batch
+                return
+        yield first
+
+    trainer = Stage1Trainer(cfg, model, listing_two())
+    before = _more_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            trainer.train(0, 1)
+            torch.cuda.synchronize()
+    finally:
+        loader.close()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = tuple(a - b for a, b in zip(_more_counts(), before))
+    (in_cpg, present, cpgs, boxes, valid, labels), = seen
+    if in_cpg != present or launches != (2, present + 1, 0, 0, 0):
+        raise AssertionError(f"CSC with csc_tau 0: A bwd {in_cpg} times in cpg for {present} "
+                             f"present classes; launches (A fwd, A bwd, C, D, D bwd) {launches}")
+    losses = {k: h.latest for k, h in trainer.storage.histories().items() if k.startswith("loss")}
+    if not np.isfinite(list(losses.values())).all():
+        raise AssertionError(f"CSC with csc_tau 0: losses {losses}")
+    active = cpgs.amax(dim=(1, 2)) > 0
+    if int(active.sum()) != present:
+        raise AssertionError(f"CSC: {int(active.sum())} non-zero CPG maps for {present} classes")
+    host, dev, other = _range_ms(prof, SINGLE_VIEW_MORE_RANGES)
+    busy = sum(dev.values()) + other
+    preds = torch.from_numpy(np.random.RandomState(SEED).uniform(0.3, 1.0, labels.shape[0])
+                             .astype(np.float32)).to(device)
+    w_card = csc(cpgs, labels, preds, boxes, valid)[0]
+    w_cpu = csc(cpgs.cpu(), labels.cpu(), preds.cpu(), boxes.cpu(), valid.cpu())[0]
+    if not torch.equal(w_card.cpu(), w_cpu):
+        raise AssertionError(f"CSC op: W on the card differs from the CPU's in "
+                             f"{int((w_card.cpu() != w_cpu).sum())} of {w_cpu.numel()}")
+    csc_ms = cuda_ms(lambda: csc(cpgs, labels, preds, boxes, valid), 20)
+    # why the op takes its square roots in f64: torch's f32 sqrt on the card
+    areas = torch.arange(1, 2_000_001, dtype=torch.float32)
+    sqrt_differ = int((areas.to(device).sqrt().cpu() != areas.sqrt()).sum())
+    fg = (cpgs[active] >= 0.1).float().mean().item()
+    log("single-view+", f"CSC step from its checkpoint with csc_tau 0: {present} present "
+        f"classes, A bwd {in_cpg} times in cpg and once in backward, launches (A fwd, A bwd, C, "
+        f"D, D bwd) {launches}; losses " + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+        + f"; CPG maps {tuple(cpgs.shape)}, {100 * fg:.1f}% of the active maps' cells >= 0.1; "
+        f"step {step_ms:.1f} ms (profiler on), range host/device ms: " +
+        ", ".join(f"{n} {host[n]:.2f}/{dev[n]:.2f}" for n in SINGLE_VIEW_MORE_RANGES) +
+        f" (cpg holds its own forward's ranges), device outside the ranges {other:.2f}; busy "
+        f"{busy:.2f} ms ({100 * busy / step_ms:.1f}%); the CSC op on the card equal to the CPU's "
+        f"(W {tuple(w_cpu.shape)}), {csc_ms:.3f} ms; torch's f32 sqrt of the integers 1 to 2e6 "
+        f"on the card differs from the CPU's for {sqrt_differ} of them on {smi}")
+    return launches
+
+
+def phase_single_view_more(device, smi: str) -> dict:
+    """GeneralizedRCNNWSL with the CSC head (VGG16, ROIPool), the WS-ResNet-50
+    backbone (OICR, ROIPool: kernel A at 2048 channels) and the ROIAlignV2
+    pooler (OICR on VGG16: kernels D and D bwd at one level and 4096 ROIs)
+    through the stage-1 CLI at full width on phase 15's synthetic VOC tree,
+    random weights from the seed, bf16: SINGLE_VIEW_STEPS steps, the eval
+    after training, --eval-only on the checkpoint; every loss finite, the
+    launches of A fwd, A bwd, C, D and D bwd a step and an eval image, the
+    first test image's detections equal to the all-plain path's; each run's
+    warm step, peak memory and host and device ms by range of its profiled
+    last step. Then one CSC step with csc_tau 0 (``_csc_cpg_step``), the
+    four kernels at these paths' shapes against their plain versions
+    (``_more_kernels``), and one train_imagenet --synthetic run of
+    IMAGENET_ARGS for each arch. Returns the launches of the paths."""
+    from sos_wsod_torch.engine.defaults import default_argument_parser
+    from sos_wsod_torch.engine.synthetic import load_config, write_synthetic_voc
+    from sos_wsod_torch.tools import train_imagenet
+    from sos_wsod_torch.tools import train_net_stage1 as cli
+
+    cli_trainer = cli.Stage1Trainer
+    ProbeTrainer = _probe_trainer(cli_trainer, _more_counts, SINGLE_VIEW_STEPS)
+    n_test = dict(SINGLE_VIEW_SPLITS)["test"]
+    names = ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd", "roi_align_bwd")
+    total = dict.fromkeys(names, 0)
+    per = {"CSC": ((2, 1, 0, 0, 0), (1, 0, 1, 0, 0)),
+           "WS-ResNet-50": ((1, 1, 0, 0, 0), (1, 0, 1, 0, 0)),
+           "ROIAlignV2": ((0, 0, 0, 1, 1), (0, 0, 1, 1, 0))}
+    records = _LogRecords()
+    root = logging.getLogger()
+    saved = (root.handlers[:], root.level)
+    logging.getLogger(cli.__name__).addHandler(records)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_voc(tmp, SINGLE_VIEW_SPLITS, RAW_HW, NUM_PROPOSALS, SEED)
+        os.chdir(tmp)
+        cli.Stage1Trainer = ProbeTrainer
+        try:
+            for name, extra in SINGLE_VIEW_MORE.items():
+                opts = [*SINGLE_VIEW_OPTS, *extra, *SINGLE_VIEW_CUT, *SINGLE_VIEW_EXTRA,
+                        "OUTPUT_DIR", "out", "SOLVER.MAX_ITER", str(SINGLE_VIEW_STEPS)]
+                cfg = load_config(str(CONFIG), opts)
+
+                def run(*flags):
+                    return cli.main(default_argument_parser().parse_args(
+                        ["--config-file", str(CONFIG), *flags, *opts]))
+
+                ProbeTrainer.runs.clear()
+                _set_more_counts((0,) * 5)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                trainer = run()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                trained = _more_counts()
+                results = run("--eval-only")
+                torch.cuda.synchronize()
+                launches = _more_counts()
+                n_dets = _plain_dets_equal(name, cfg, "out", device)
+                per_step, per_image = per[name]
+                probe = ProbeTrainer.runs[-1]
+                if probe.step_launches != [per_step] * SINGLE_VIEW_STEPS:
+                    raise AssertionError(f"{name}: launches (A fwd, A bwd, C, D, D bwd) per step "
+                                         f"{probe.step_launches}, expected {per_step}")
+                want_train = tuple(SINGLE_VIEW_STEPS * a + n_test * b
+                                   for a, b in zip(per_step, per_image))
+                got_eval = tuple(a - b for a, b in zip(launches, trained))
+                if (trained, got_eval) != (want_train, tuple(n_test * b for b in per_image)):
+                    raise AssertionError(f"{name}: launches (A fwd, A bwd, C, D, D bwd) of the "
+                                         f"training run {trained}, of --eval-only {got_eval}")
+                for step, sc in enumerate(probe.step_scalars):
+                    losses = [v for k, v in sc.items() if k.startswith("loss")]
+                    if not losses or not np.isfinite(losses + [sc["total_loss"]]).all():
+                        raise AssertionError(f"{name} step {step}: {sc}")
+                ap = results["voc_2007_test"]["bbox"]["AP50"]
+                if not np.isfinite(ap):
+                    raise AssertionError(f"{name}: AP50 {ap}")
+                model = trainer.model
+                feat_note = (f"res5 {model.backbone.out_channels} channels, fc1 "
+                             f"{model.roi_heads.dan.fc1.in_features} inputs; "
+                             if name.startswith("WS") else "")
+                steps = probe.step_ms
+                warm = statistics.median(steps[1:-1]) if len(steps) > 2 else steps[-1]
+                host, dev, other = _range_ms(probe.prof, SINGLE_VIEW_MORE_RANGES)
+                busy = sum(dev.values()) + other
+                log("single-view+", f"{name}: {len(steps)} steps in {secs:.1f} s with the eval; "
+                    f"{feat_note}losses " + "; ".join(
+                        ", ".join(f"{k} {v:.4f}" for k, v in sc.items() if k.startswith("loss"))
+                        for sc in probe.step_scalars)
+                    + f"; step ms {[round(t, 1) for t in steps]}, warm {warm:.1f} ms = "
+                    f"{1e3 / warm:.2f} img/s; peak memory {peak_gb:.2f} GB; launches (A fwd, "
+                    f"A bwd, C, D, D bwd) a step {per_step}, an eval image {per_image}; "
+                    f"eval-only AP50 {ap:.3f}; first test image's {n_dets} detections equal to "
+                    f"the all-plain path's on {smi}")
+                log("single-view+", f"{name} profiled step, range host/device ms: " +
+                    ", ".join(f"{n} {host[n]:.2f}/{dev[n]:.2f}" for n in SINGLE_VIEW_MORE_RANGES)
+                    + f", device outside the ranges {other:.2f}; busy {busy:.2f} of "
+                    f"{steps[-1]:.2f} ms ({100 * busy / steps[-1]:.1f}%, profiler on)")
+                if name == "CSC":
+                    _set_more_counts(launches)
+                    extra_step = _csc_cpg_step(cfg, "out", device, smi)
+                    launches = tuple(a + b for a, b in zip(launches, extra_step))
+                _set_more_counts(launches)   # the comparisons' launches do not count
+                for k, v in zip(names, launches):
+                    total[k] += v
+                del trainer, model, probe
+                ProbeTrainer.runs.clear()
+                shutil.rmtree("out")
+                torch.cuda.empty_cache()
+        finally:
+            cli.Stage1Trainer = cli_trainer
+            os.chdir(cwd)
+            logging.getLogger(cli.__name__).removeHandler(records)
+            for h in root.handlers:
+                if h not in saved[0]:
+                    h.close()
+            root.handlers[:], root.level = saved
+
+    counts = _more_counts()
+    _more_kernels(device, smi)
+    _set_more_counts(counts)
+    for arch in ("vgg16", "ws_resnet50"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train_imagenet.main([*IMAGENET_ARGS, "--arch", arch])
+        torch.cuda.synchronize()
+        m = out["metrics"]
+        if not np.isfinite(m["loss"]):
+            raise AssertionError(f"train_imagenet {arch}: loss {m['loss']}")
+        log("single-view+", f"train_imagenet --synthetic {arch} {IMAGENET_ARGS[1:]}: last loss "
+            f"{m['loss']:.4f}, acc {m['acc']:.3f}; {out['img_per_s']:.1f} img/s over the run "
+            f"(its first step), {time.perf_counter() - t0:.1f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {smi}")
+        del out
+        torch.cuda.empty_cache()
+    return total
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging its wall seconds."""
     t0 = time.perf_counter()
@@ -2330,12 +2709,15 @@ def main() -> int:
     pipeline_launches = timed("13 pipeline and TTA", phase_pipeline, smi)
     ddp_launches = timed("14 data parallel", phase_data_parallel, smi)
     single_launches = timed("15 single-view heads", phase_single_view, device, smi)
+    more_launches = timed("16 CSC, WS-ResNet-50, ROIAlignV2", phase_single_view_more, device,
+                          smi)
     paths = {"stage-1 inference": infer_launches, "stage-1 training": train_launches,
              "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches,
              "stage-2 training": stage2_train_launches,
              "stage-3 split and training": stage3_train_launches,
              "pipeline and TTA": pipeline_launches, "data parallel": ddp_launches,
-             "single-view heads": single_launches}
+             "single-view heads": single_launches,
+             "CSC, WS-ResNet-50, ROIAlignV2": more_launches}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd",
                           "roi_align_bwd", "roi_loop_pool_fwd")}

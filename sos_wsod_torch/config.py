@@ -228,6 +228,7 @@ def get_cfg() -> CfgNode:
                          "MAX_SIZE": 4000, "FLIP": True}},
         "WSL": {"ITER_SIZE": 1, "MEAN_LOSS": True, "REFINE_NUM": 3,
                 "SIZE_EPOCH": 5000,   # CMIL's continuation schedule
+                "CSC_MAX_ITER": 35000,   # the CSC head's constraints end after this step
                 "REFINE_REG": [False, False, False], "REFINE_MIST": False,
                 "MIST_P": 0.10, "MIST_THRE": 0.05, "MIST_TYPE": "nms"},
         "OICRPLUS": {"BBOX_UPDATE": False},

@@ -92,7 +92,7 @@ def default_setup(cfg, args) -> None:
     if cfg.TPU.MODEL_AXIS_SIZE > 1:
         raise NotImplementedError(
             f"TPU.MODEL_AXIS_SIZE {cfg.TPU.MODEL_AXIS_SIZE}: tensor parallelism of the DAN fc "
-            "stack is not ported (ROADMAP Queue 1 item 4); the port runs data parallel only")
+            "stack is not ported (ROADMAP Queue 1 item 6); the port runs data parallel only")
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Command line args: %s", args)
     if cfg.OUTPUT_DIR:

@@ -17,6 +17,7 @@ import os
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..config import get_cfg
 from ..data import transforms as T
@@ -31,9 +32,11 @@ from .weights import load_weights, state_dict_from_d2_frcnn, state_dict_from_d2_
 
 
 def random_d2_wsl_blobs(seed: int, num_classes: int, refine_k: int,
-                        dan_dims: Sequence[int]) -> Dict[str, np.ndarray]:
+                        dan_dims: Sequence[int], fc1_in: int = 512 * 49
+                        ) -> Dict[str, np.ndarray]:
     """Random VGG16 OICR+ weights under the d2-WSL checkpoint names:
-    msra-scaled convs and the JAX package's head initializer scales."""
+    msra-scaled convs and the JAX package's head initializer scales; DAN fc1
+    takes ``fc1_in`` inputs (the pooled ROIs of a wider backbone)."""
     rng = np.random.default_rng(seed)
 
     def normal(shape, std):
@@ -48,7 +51,7 @@ def random_d2_wsl_blobs(seed: int, num_classes: int, refine_k: int,
                                                               np.sqrt(2.0 / (9 * cout)))
             blobs[f"backbone.{name}.conv{i}.bias"] = normal((cout,), 0.01)
             cin = cout
-    dims = [512 * 49, *dan_dims]
+    dims = [fc1_in, *dan_dims]
     for i in range(len(dan_dims)):
         blobs[f"roi_heads.box_head.fc{i + 1}.weight"] = normal((dims[i + 1], dims[i]), 0.005)
         blobs[f"roi_heads.box_head.fc{i + 1}.bias"] = np.full(dims[i + 1], 0.1, np.float32)
@@ -142,16 +145,70 @@ def load_config(config_file: str, opts: Sequence = ()):
     return cfg
 
 
+def random_ws_resnet_state_dict(depth: int, seed: int, prefix: str = "backbone."
+                                ) -> Dict[str, np.ndarray]:
+    """Random weights of a WS-ResNet trunk (``models/backbones/resnet_ws.py``
+    at the JAX defaults' widths, 64 / 256 / 64) under the port's names:
+    msra-scaled convs, the stem's first scaled down by the pixel range, and
+    FrozenBN statistics near the identity with each block's last one at
+    about 0.3, so that the features neither vanish nor grow through the
+    blocks."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k, gain=1.0):
+        std = np.float32(gain * np.sqrt(2.0 / (cout * k * k)))
+        sd[f"{prefix}{name}.weight"] = rng.standard_normal((cout, cin, k, k),
+                                                           dtype=np.float32) * std
+
+    def norm(name, c, gain=1.0):
+        sd[f"{prefix}{name}.weight"] = rng.uniform(0.8 * gain, 1.2 * gain, c).astype(np.float32)
+        sd[f"{prefix}{name}.bias"] = rng.standard_normal(c, dtype=np.float32) * np.float32(0.1)
+        sd[f"{prefix}{name}.running_mean"] = rng.standard_normal(c, dtype=np.float32) * \
+            np.float32(0.1)
+        sd[f"{prefix}{name}.running_var"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+
+    for i in (1, 2, 3):
+        conv(f"stem.conv{i}", 64, 3 if i == 1 else 64, 3, gain=1.0 / 64 if i == 1 else 1.0)
+        norm(f"stem.conv{i}_norm", 64)
+    cin, cout, bott = 64, 256, 64
+    for stage, n_blocks in enumerate(DEPTH_BLOCKS[depth], start=2):
+        for b in range(n_blocks):
+            pre = f"res{stage}_block{b}"
+            block_in = cin if b == 0 else cout
+            conv(f"{pre}.conv1", bott, block_in, 1)
+            norm(f"{pre}.conv1_norm", bott)
+            conv(f"{pre}.conv2", bott, bott, 3)
+            norm(f"{pre}.conv2_norm", bott)
+            conv(f"{pre}.conv3", cout, bott, 1)
+            norm(f"{pre}.conv3_norm", cout, gain=0.3)
+            if block_in != cout:
+                conv(f"{pre}.shortcut", cout, block_in, 1)
+                norm(f"{pre}.shortcut_norm", cout)
+        cin, cout, bott = cout, cout * 2, bott * 2
+    return sd
+
+
 def build_synthetic_model(cfg, device, seed: int):
     """The stage-1 model of ``cfg`` (``build_stage1_model``: MultiInputRCNN
     or GeneralizedRCNNWSL) with random weights from ``seed`` on ``device``,
     in eval mode. The blobs are drawn for the OICR+ model; the weights a
-    model lacks (refinement branches of WSDDN and ContextLocNet, box
-    regressors of branches without regression) are dropped."""
+    model lacks (refinement branches of WSDDN, ContextLocNet and CSC, box
+    regressors of branches without regression) are dropped. A WS-ResNet
+    model takes its trunk from ``random_ws_resnet_state_dict`` and a DAN fc1
+    as wide as its pooled ROIs."""
     model = build_stage1_model(cfg, device="meta")
+    fc1_in = model.roi_heads.dan.fc1.in_features
     blobs = random_d2_wsl_blobs(seed, cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.WSL.REFINE_NUM,
-                                cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)
-    return load_weights(model, state_dict_from_d2_wsl(blobs, keep=model.state_dict()), device)
+                                cfg.MODEL.ROI_BOX_HEAD.DAN_DIM, fc1_in)
+    if getattr(model, "backbone_name", "vgg16") == "vgg16":
+        return load_weights(model, state_dict_from_d2_wsl(blobs, keep=model.state_dict()),
+                            device)
+    head = {k: v for k, v in blobs.items() if not k.startswith("backbone.")}
+    sd = state_dict_from_d2_wsl(head, keep=model.state_dict())
+    sd.update((k, torch.from_numpy(v)) for k, v in
+              random_ws_resnet_state_dict(cfg.MODEL.RESNETS.DEPTH, seed).items())
+    return load_weights(model, sd, device)
 
 
 def write_stage1_checkpoint(output_dir: str, cfg, seed: int) -> str:

@@ -10,7 +10,11 @@ tree converts leaf by leaf: conv kernels HWIO -> OIHW, Dense kernels
 of the DAN and of the FPN box head stay in the (h, w, c) order the JAX tree
 already holds, because the port also pools channels-last; a single-view
 (GeneralizedRCNNWSL) tree, whose DAN flattens NCHW ROIs in (c, h, w) order,
-has its fc1 reordered (``dan_channels_last=False``).
+has its fc1 reordered (``dan_channels_last=False``), whatever the width of
+its pooled ROIs (VGG16's 512 channels x 49 cells, WS-ResNet's 2048 x 49).
+A single-view tree with the WS-ResNet backbone (``backbone.stem.conv1``,
+``backbone.res2_block0.conv1_norm`` ...), the CSC head or any pooler
+converts with no other mapping: the poolers have no weights.
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ def state_dict_from_flax(params: Mapping[str, Any], dan_channels_last: bool = Tr
 
 def _fc1_channels_last(w: np.ndarray, cells: int = 49) -> np.ndarray:
     """DAN fc1 (out, C*7*7) with inputs in torch's (c, h, w) flatten order ->
-    inputs in the (h, w, c) order of the channels-last pooled ROIs."""
+    inputs in the (h, w, c) order of the channels-last pooled ROIs (any C)."""
     out_dim, in_dim = w.shape
     return w.reshape(out_dim, in_dim // cells, cells).transpose(0, 2, 1).reshape(out_dim, in_dim)
 

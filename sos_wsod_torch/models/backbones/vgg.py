@@ -12,8 +12,12 @@ Run in ``torch.channels_last``: then ``plain5.permute(0, 2, 3, 1)`` is already
 a contiguous NHWC tensor.
 
 ``freeze_at=2`` freezes plain1 and plain2: their parameters do not require
-grad (the JAX package gives them lr 0 and weight decay 0) and the autograd
-graph is cut after plain{freeze_at}, where JAX stops the gradient.
+grad (the JAX package gives them lr 0 and weight decay 0, and stops the
+gradient after plain{freeze_at}). Their output is not detached: an input
+that takes no gradient builds no graph through them anyway, and one that
+does (the CSC head's CPG maps take the gradient of the class scores with
+respect to the image) gets its gradient through them, as in the reference,
+where the JAX package's stop_gradient leaves every CPG map zero.
 """
 from __future__ import annotations
 
@@ -63,9 +67,10 @@ def _mask_padding(x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
 class VGG16(nn.Module):
     """Returns the 'plain5' feature map, NCHW shape in channels_last memory."""
 
+    out_channels = 512
+
     def __init__(self, conv5_dilation: int = 2, freeze_at: int = 2, device=None):
         super().__init__()
-        self.freeze_at = freeze_at
         p4_pool = 1 if conv5_dilation == 2 else 2
         spec = [  # (name, in, out, num_conv, dilation, pool)
             ("plain1", 3, 64, 2, 1, 2),
@@ -83,12 +88,10 @@ class VGG16(nn.Module):
     def forward(self, x: torch.Tensor, valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (N, 3, H, W) BGR mean-subtracted; valid_hw: (N, 2) true extents."""
         v = valid_hw
-        for i, name in enumerate(self.stage_names, start=1):
+        for name in self.stage_names:
             stage = getattr(self, name)
             x = stage(x)
             if v is not None:
                 v = _stage_valid(v, stage.pool_stride)
                 x = _mask_padding(x, v)
-            if i == self.freeze_at:
-                x = x.detach()
         return x

@@ -65,7 +65,10 @@ from sos_wsod_torch.engine.synthetic import write_synthetic_voc
 from sos_wsod_torch.tools import bench_gather, train_net_stage1
 assert {"sos_wsod_torch.tools.bench_gather", "sos_wsod_torch.tools.train_net_stage1",
         "sos_wsod_torch.tools.train_net_unbias", "sos_wsod_torch.models.meta.rcnn",
-        "sos_wsod_torch.kernels.nms", "sos_wsod_torch.kernels.roi_align"} <= set(names)
+        "sos_wsod_torch.kernels.nms", "sos_wsod_torch.kernels.roi_align",
+        "sos_wsod_torch.ops.csc", "sos_wsod_torch.models.heads.csc",
+        "sos_wsod_torch.models.backbones.resnet_ws",
+        "sos_wsod_torch.tools.train_imagenet"} <= set(names)
 cwd = os.getcwd()
 with tempfile.TemporaryDirectory() as tmp:
     write_synthetic_voc(tmp, (("train", 1), ("test", 1)), (50, 70), 30, 0)
