@@ -7,7 +7,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles every CUDA kernel of the stage-1 and stage-2 paths with
      nvcc from the sources in this checkout (into build/sos_wsod_torch/), one
-     nvcc per source, all started together;
+     nvcc per source, all started together, and beside them WSJDS's host
+     dense CRF (native/dense_crf.cpp) with g++;
   3. forward kernel vs plain: the ROIPool forward kernel against its plain
      PyTorch version at the production shape and the top training map, bf16
      and f32, bit-identical out and argmax, with and without pos and scale;
@@ -205,7 +206,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
      plain version (the backwards to theirs on the CPU), timed beside the
      bound and index_add_; then one python -m
      sos_wsod_torch.tools.train_imagenet --synthetic step for vgg16 and for
-     ws_resnet50 at 224 x 224, batch 32, its loss finite.
+     ws_resnet50 at 224 x 224, batch 32, its loss finite;
+ 17. the WSJDS head (VGG16, ROIPool, DAN 4096/4096, ASPP 1024/1024 x 4
+     dilations) through the stage-1 CLI at full width, with phase 15's
+     options, cut and tree: every step's five loss terms and total finite,
+     the launches of A fwd, A bwd and C a step and an eval image, the eval
+     and --eval-only, the first test image's detections equal to the
+     all-plain path's, its (20, H, W) masks in [0, 1] and the instance
+     masks of its detections equal too; the warm step, peak memory and the
+     ranges (``cpg``, ``csc``, ``sem_seg`` among them). Then one step from
+     the seeded weights with csc_tau 0 (A bwd once in ``cpg`` for each class
+     the image lists; positive segmentation targets) and one with the CRF
+     constraint (``from_cfg(..., wsjds_constraint=True)``, which no config
+     key reaches), the host CRF at the canvas in its ``crf`` range.
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the stage-1 inference throughput.
@@ -237,6 +250,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from sos_wsod_torch.tools.bench_roi_pool import (
@@ -325,6 +339,13 @@ WS_RESNET_HWC = (88, 120, 2048)    # res5 of WS-ResNet-50 on the 704 x 960 canva
 ALIGN_HWC = FEAT_HWC               # the ROIAlign pooler's one level: VGG16's plain5
 IMAGENET_ARGS = ["--synthetic", "--image-size", "224", "--batch-size", "32", "--max-iter", "1",
                  "--log-period", "1"]
+# phase 17: the WSJDS head (VGG16, ROIPool, ASPP 1024/1024 x 4 dilations)
+# through the stage-1 CLI, with phase 15's options, cut and tree
+WSJDS_OPTS = ["MODEL.ROI_HEADS.NAME", "WSJDSROIHeads"]
+WSJDS_KEYS = ("loss_cls_pos", "loss_cls_neg", "loss_sem_seg", "mask_loss_cls_pos",
+              "mask_loss_cls_neg", "total_loss")
+WSJDS_RANGES = ("h2d", "cpg", "backbone", "roi_pool", "box_head", "csc", "sem_seg", "crf",
+                "backward", "optimizer")
 
 
 def log(phase: str, msg: str) -> None:
@@ -350,13 +371,24 @@ def phase_build() -> None:
         lib = build.build(name)
         return lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
+    def host(name):
+        build.library_path(name, build.NATIVE_DIR / f"{name}.cpp", build.HOST_FLAGS).unlink(
+            missing_ok=True)
+        t0 = time.perf_counter()
+        lib = build.build_host(name)
+        return lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNELS) + 1) as ex:
+        crf = ex.submit(host, "dense_crf")     # WSJDS's host CRF (C++, g++)
         done = list(ex.map(one, KERNELS))
+        crf_lib, crf_secs = crf.result()
     for name, (lib, secs) in zip(KERNELS, done):
         report = lib.with_name(lib.name + ".log").read_text()
         ptxas = " ".join(line.split("ptxas info    : ")[-1] for line in report.splitlines()
                          if "registers" in line or "spill" in line)
         log("build", f"{name}.cu -> {lib.relative_to(ROOT)} in {secs:.2f} s; {ptxas}")
+    log("build", f"dense_crf.cpp (host, g++ {' '.join(build.HOST_FLAGS)}) -> "
+                 f"{crf_lib.relative_to(ROOT)} in {crf_secs:.2f} s")
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -2443,44 +2475,17 @@ def _more_kernels(device, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _csc_cpg_step(cfg, output: str, device, smi: str) -> tuple:
-    """One more CSC step, from the checkpoint in ``output``, on a model with
-    csc_tau 0 (with random weights no image score reaches the config's 0.7,
-    and the CPG backward would never run): a Stage1Trainer on the first
-    batch of the CLI's loader whose image lists two classes or more,
-    profiled. A bwd must launch once in the ``cpg`` range for each
-    class the image lists, and once in ``backward``. Then the CSC op on
-    those CPG maps and the image's boxes on the card and on the CPU: W
-    equal; and how many f32 square roots of integers torch's card gets
-    otherwise than its CPU (the reason the op roots in f64). Returns the
-    step's launches (A fwd, A bwd, C, D, D bwd)."""
+def _profiled_step(cfg, model) -> tuple:
+    """One Stage1Trainer step of ``model``, profiled, on the first batch of
+    the CLI's loader whose image lists two classes or more (within 16
+    batches, else its first). Returns (trainer, profile, step ms, launches
+    of A fwd, A bwd, C, D, D bwd)."""
     from sos_wsod_torch.data.build import build_stage1_train_loader
-    from sos_wsod_torch.engine.checkpoint import Checkpointer
     from sos_wsod_torch.engine.trainer import Stage1Trainer
-    from sos_wsod_torch.engine.weights import load_weights
-    from sos_wsod_torch.kernels import roi_pool_bwd as bwd
-    from sos_wsod_torch.models.meta.rcnn_wsl_single import build_stage1_model
-    from sos_wsod_torch.ops.csc import csc
 
-    state = Checkpointer(output).load("model_final", map_location=device)
-    model = load_weights(build_stage1_model(cfg, device="meta"), state["model"], device)
-    model.csc_tau = 0.0
-    seen = []
-    compute_cpgs = model.compute_cpgs
-
-    def probe(batch, generator=None):
-        before = bwd.launches
-        cpgs = compute_cpgs(batch, generator)
-        seen.append((bwd.launches - before, int(batch["gt_classes_oh"].sum()), cpgs,
-                     batch["boxes"], batch["prop_valid"], batch["gt_classes_oh"]))
-        return cpgs
-
-    model.compute_cpgs = probe
     loader = build_stage1_train_loader(cfg)
 
     def listing_two():
-        """The stream's first batch whose image lists two classes or more
-        (within 16 batches), else its first."""
         first = None
         for _ in range(16):
             batch = next(loader)
@@ -2502,7 +2507,40 @@ def _csc_cpg_step(cfg, output: str, device, smi: str) -> tuple:
     finally:
         loader.close()
     step_ms = (time.perf_counter() - t0) * 1e3
-    launches = tuple(a - b for a, b in zip(_more_counts(), before))
+    return trainer, prof, step_ms, tuple(a - b for a, b in zip(_more_counts(), before))
+
+
+def _csc_cpg_step(cfg, output: str, device, smi: str) -> tuple:
+    """One more CSC step, from the checkpoint in ``output``, on a model with
+    csc_tau 0 (with random weights no image score reaches the config's 0.7,
+    and the CPG backward would never run), profiled (``_profiled_step``). A
+    bwd must launch once in the ``cpg`` range for each class the image
+    lists, and once in ``backward``. Then the CSC op on
+    those CPG maps and the image's boxes on the card and on the CPU: W
+    equal; and how many f32 square roots of integers torch's card gets
+    otherwise than its CPU (the reason the op roots in f64). Returns the
+    step's launches (A fwd, A bwd, C, D, D bwd)."""
+    from sos_wsod_torch.engine.checkpoint import Checkpointer
+    from sos_wsod_torch.engine.weights import load_weights
+    from sos_wsod_torch.kernels import roi_pool_bwd as bwd
+    from sos_wsod_torch.models.meta.rcnn_wsl_single import build_stage1_model
+    from sos_wsod_torch.ops.csc import csc
+
+    state = Checkpointer(output).load("model_final", map_location=device)
+    model = load_weights(build_stage1_model(cfg, device="meta"), state["model"], device)
+    model.csc_tau = 0.0
+    seen = []
+    compute_cpgs = model.compute_cpgs
+
+    def probe(batch, generator=None):
+        before = bwd.launches
+        cpgs = compute_cpgs(batch, generator)
+        seen.append((bwd.launches - before, int(batch["gt_classes_oh"].sum()), cpgs,
+                     batch["boxes"], batch["prop_valid"], batch["gt_classes_oh"]))
+        return cpgs
+
+    model.compute_cpgs = probe
+    trainer, prof, step_ms, launches = _profiled_step(cfg, model)
     (in_cpg, present, cpgs, boxes, valid, labels), = seen
     if in_cpg != present or launches != (2, present + 1, 0, 0, 0):
         raise AssertionError(f"CSC with csc_tau 0: A bwd {in_cpg} times in cpg for {present} "
@@ -2678,6 +2716,256 @@ def phase_single_view_more(device, smi: str) -> dict:
     return total
 
 
+def _wsjds_masks(name: str, cfg, output: str, device) -> tuple:
+    """The first test image through ``predict`` of the WSJDS checkpoint in
+    ``output``, with the kernels and on the all-plain path: its (K, H, W)
+    masks f32 in [0, 1] at the canvas, and ``crop_instance_masks`` of its
+    detections, each equal between the two. Returns the masks' shape and
+    the number of instance masks."""
+    from sos_wsod_torch.data.build import build_stage1_test_loader
+    from sos_wsod_torch.engine.checkpoint import Checkpointer
+    from sos_wsod_torch.engine.weights import load_weights
+    from sos_wsod_torch.models.heads.wsjds import crop_instance_masks
+    from sos_wsod_torch.models.meta.rcnn_wsl_single import build_stage1_model
+
+    state = Checkpointer(output).load("model_final", map_location=device)
+    model = load_weights(build_stage1_model(cfg, device="meta"), state["model"], device)
+    sample = next(iter(build_stage1_test_loader(cfg, cfg.DATASETS.TEST[0])))
+    batch = {k: torch.as_tensor(v, device=device) for k, v in sample.items() if k != "image_id"}
+
+    def predict():
+        with torch.inference_mode(), torch.autocast(
+                torch.device(device).type, dtype=torch.bfloat16,
+                enabled=model.compute_dtype == torch.bfloat16):
+            det, _, _, masks = model.predict(batch)
+            inst = crop_instance_masks(masks, det.boxes[det.valid], det.classes[det.valid])
+        return masks, inst
+
+    masks, inst = predict()
+    with _plain_versions(roi_align=True, roi_pool=True):
+        plain_masks, plain_inst = predict()
+    shape = (cfg.MODEL.ROI_HEADS.NUM_CLASSES, *batch["image"].shape[:2])
+    if tuple(masks.shape) != shape or masks.dtype != torch.float32:
+        raise AssertionError(f"{name}: masks {tuple(masks.shape)} {masks.dtype}, expected "
+                             f"{shape} float32")
+    if not (bool((masks >= 0).all()) and bool((masks <= 1).all())):
+        raise AssertionError(f"{name}: masks outside [0, 1]: {masks.min()} .. {masks.max()}")
+    if not (torch.equal(masks, plain_masks) and torch.equal(inst, plain_inst)):
+        raise AssertionError(f"{name}: the masks or the instance masks differ from the "
+                             "all-plain path's")
+    return tuple(masks.shape), inst.shape[0]
+
+
+def _wsjds_step(cfg, device, smi: str, *, csc_tau: float, constraint: bool) -> tuple:
+    """One WSJDS step from the seeded random weights, profiled, on a model
+    built by ``from_cfg(cfg, csc_tau=..., wsjds_constraint=...)`` (no config
+    key reaches either) and run by Stage1Trainer directly
+    (``_profiled_step``). Not from the CLI run's checkpoint: with random
+    weights its 3 steps at the recipe's learning rate leave every present
+    class's image score near 0.01 and the CPG maps zero. csc_tau 0: A bwd launches once in ``cpg`` for each class the image
+    lists, and the segmentation targets have positives (the active maps'
+    cells >= 0.1). ``constraint``: the host CRF of the masks at the canvas,
+    its ``crf`` host ms. Returns the step's launches (A fwd, A bwd, C, D,
+    D bwd)."""
+    from sos_wsod_torch.engine.synthetic import build_synthetic_model
+    from sos_wsod_torch.engine.weights import load_weights
+    from sos_wsod_torch.kernels import roi_pool_bwd as bwd
+    from sos_wsod_torch.models.meta.rcnn_wsl_single import GeneralizedRCNNWSL
+
+    model = load_weights(GeneralizedRCNNWSL.from_cfg(cfg, device="meta", csc_tau=csc_tau,
+                                                     wsjds_constraint=constraint),
+                         build_synthetic_model(cfg, device, SEED).state_dict(), device)
+    seen = []
+    compute_cpgs = model.compute_cpgs
+
+    def probe(batch, generator=None):
+        before = bwd.launches
+        cpgs = compute_cpgs(batch, generator)
+        seen.append((bwd.launches - before, int(batch["gt_classes_oh"].sum()), cpgs))
+        return cpgs
+
+    model.compute_cpgs = probe
+    trainer, prof, step_ms, launches = _profiled_step(cfg, model)
+    (in_cpg, present, cpgs), = seen
+    active = cpgs.amax(dim=(1, 2)) > 0
+    want_cpg = present if csc_tau == 0.0 else int(active.sum())
+    if in_cpg != want_cpg or launches != (2, in_cpg + 1, 0, 0, 0):
+        raise AssertionError(f"WSJDS csc_tau {csc_tau}: A bwd {in_cpg} times in cpg for "
+                             f"{present} present classes; launches (A fwd, A bwd, C, D, D bwd) "
+                             f"{launches}")
+    pos = float((cpgs[active] >= 0.1).float().mean()) if bool(active.any()) else 0.0
+    if csc_tau == 0.0 and not pos > 0:
+        raise AssertionError(
+            f"WSJDS with csc_tau 0: no positive segmentation target; CPG maps' peaks "
+            f"{cpgs.amax(dim=(1, 2)).tolist()}, {int(cpgs.isnan().sum())} NaN cells")
+    hist = trainer.storage.histories()
+    losses = {k: hist[k].latest for k in WSJDS_KEYS + (("loss_constraint",) if constraint
+                                                       else ())}
+    if not np.isfinite(list(losses.values())).all():
+        raise AssertionError(f"WSJDS csc_tau {csc_tau}, constraint {constraint}: {losses}")
+    host, dev, other = _range_ms(prof, WSJDS_RANGES)
+    busy = sum(dev.values()) + other
+    log("wsjds", f"step from the seeded weights with csc_tau {csc_tau}, constraint {constraint}: "
+        f"{present} present classes, A bwd {in_cpg} times in cpg and once in backward, launches "
+        f"(A fwd, A bwd, C, D, D bwd) {launches}; CPG maps {tuple(cpgs.shape)}, {100 * pos:.1f}% "
+        f"of the active maps' cells >= 0.1 (positive targets); losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+        + f"; step {step_ms:.1f} ms (profiler on), range host/device ms: "
+        + ", ".join(f"{n} {host[n]:.2f}/{dev[n]:.2f}" for n in WSJDS_RANGES)
+        + f", device outside the ranges {other:.2f}; busy {busy:.2f} ms "
+        f"({100 * busy / step_ms:.1f}%) on {smi}")
+    return launches
+
+
+def _aspp_times(device, smi: str) -> None:
+    """The ASPP head at full width (512 -> 1024 -> 1024 -> 20, dilations 6
+    to 24) on plain5 of the 704 x 960 canvas (88 x 120), bf16, training
+    mode: forward, and forward + backward, as the port runs its dilated
+    convs (on the d x d sub-grids) and as cuDNN's dilated convs in NCHW and
+    in channels_last (the memory format of the model's other weights)."""
+    from sos_wsod_torch.models.heads import aspp
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    head = aspp.ASPPHead(512, 20, (1024, 1024), device=device).train()
+    feat = torch.randn((88, 120, 512), generator=gen, device=device) * 10
+
+    def run(backward):
+        with torch.autocast(torch.device(device).type, dtype=torch.bfloat16):
+            out = head(feat, gen)
+        if backward:
+            out.float().sum().backward()
+
+    def dilated(fmt):
+        def conv(c, x):
+            return F.conv2d(x.contiguous(memory_format=fmt), c.weight.contiguous(memory_format=fmt),
+                            c.bias, c.stride, c.padding, c.dilation)
+        return conv
+
+    sub_grids = aspp._conv_nchw
+    times = {}
+    try:
+        for name, conv, n in (("sub-grids", sub_grids, 10),
+                              ("dilated NCHW", dilated(torch.contiguous_format), 5),
+                              ("dilated channels_last", dilated(torch.channels_last), 2)):
+            aspp._conv_nchw = conv
+            times[name] = (cuda_ms(lambda: run(False), n), cuda_ms(lambda: run(True), n))
+    finally:
+        aspp._conv_nchw = sub_grids
+    log("wsjds", "ASPP at 88 x 120 x 512 bf16, forward / forward + backward ms: " + ", ".join(
+        f"{k} {f:.2f} / {fb:.2f}" for k, (f, fb) in times.items()) + f" on {smi}")
+
+
+def phase_wsjds(device, smi: str) -> dict:
+    """GeneralizedRCNNWSL with the WSJDS head (VGG16, ROIPool, DAN
+    4096/4096, ASPP 1024/1024 x 4 dilations, 20 classes, P = 4096 with 4000
+    valid) through the stage-1 CLI at full width on phase 15's synthetic VOC
+    tree, random weights from the seed, bf16: SINGLE_VIEW_STEPS steps, the
+    eval after training, --eval-only on the checkpoint; every step's five
+    loss terms and total finite, the launches of A fwd, A bwd and C a step
+    and an eval image, the first test image's detections equal to the
+    all-plain path's, and its masks and instance masks too (``_wsjds_masks``);
+    the warm step, peak memory and host and device ms by range of the
+    profiled last step. Then one step with csc_tau 0 and one with the CRF
+    constraint, from the seeded weights (``_wsjds_step``). Returns the
+    launches."""
+    from sos_wsod_torch.engine.defaults import default_argument_parser
+    from sos_wsod_torch.engine.synthetic import load_config, write_synthetic_voc
+    from sos_wsod_torch.tools import train_net_stage1 as cli
+
+    cli_trainer = cli.Stage1Trainer
+    ProbeTrainer = _probe_trainer(cli_trainer, _more_counts, SINGLE_VIEW_STEPS)
+    n_test = dict(SINGLE_VIEW_SPLITS)["test"]
+    names = ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd", "roi_align_bwd")
+    per_step, per_image = (2, 1, 0, 0, 0), (1, 0, 1, 0, 0)
+    records = _LogRecords()
+    root = logging.getLogger()
+    saved = (root.handlers[:], root.level)
+    logging.getLogger(cli.__name__).addHandler(records)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_voc(tmp, SINGLE_VIEW_SPLITS, RAW_HW, NUM_PROPOSALS, SEED)
+        os.chdir(tmp)
+        cli.Stage1Trainer = ProbeTrainer
+        try:
+            opts = [*SINGLE_VIEW_OPTS, *WSJDS_OPTS, *SINGLE_VIEW_CUT, *SINGLE_VIEW_EXTRA,
+                    "OUTPUT_DIR", "out", "SOLVER.MAX_ITER", str(SINGLE_VIEW_STEPS)]
+            cfg = load_config(str(CONFIG), opts)
+
+            def run(*flags):
+                return cli.main(default_argument_parser().parse_args(
+                    ["--config-file", str(CONFIG), *flags, *opts]))
+
+            ProbeTrainer.runs.clear()
+            _set_more_counts((0,) * 5)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            trained = _more_counts()
+            results = run("--eval-only")
+            torch.cuda.synchronize()
+            launches = _more_counts()
+            n_dets = _plain_dets_equal("WSJDS", cfg, "out", device)
+            mask_shape, n_inst = _wsjds_masks("WSJDS", cfg, "out", device)
+            _set_more_counts(launches)   # the comparisons' launches do not count
+            probe = ProbeTrainer.runs[-1]
+            if probe.step_launches != [per_step] * SINGLE_VIEW_STEPS:
+                raise AssertionError(f"WSJDS: launches (A fwd, A bwd, C, D, D bwd) per step "
+                                     f"{probe.step_launches}, expected {per_step}")
+            want_train = tuple(SINGLE_VIEW_STEPS * a + n_test * b
+                               for a, b in zip(per_step, per_image))
+            got_eval = tuple(a - b for a, b in zip(launches, trained))
+            if (trained, got_eval) != (want_train, tuple(n_test * b for b in per_image)):
+                raise AssertionError(f"WSJDS: launches (A fwd, A bwd, C, D, D bwd) of the "
+                                     f"training run {trained}, of --eval-only {got_eval}")
+            for step, sc in enumerate(probe.step_scalars):
+                if set(WSJDS_KEYS) - set(sc) or not np.isfinite([sc[k] for k in WSJDS_KEYS]).all():
+                    raise AssertionError(f"WSJDS step {step}: {sc}")
+            ap = results["voc_2007_test"]["bbox"]["AP50"]
+            if not np.isfinite(ap):
+                raise AssertionError(f"WSJDS: AP50 {ap}")
+            aspp = trainer.model.roi_heads.sem_seg_head
+            conv1 = aspp.dilation6.conv1
+            steps = probe.step_ms
+            warm = statistics.median(steps[1:-1]) if len(steps) > 2 else steps[-1]
+            host, dev, other = _range_ms(probe.prof, WSJDS_RANGES)
+            busy = sum(dev.values()) + other
+            log("wsjds", f"{len(steps)} steps in {secs:.1f} s with the eval; ASPP dilations "
+                f"{aspp.dilations}, {conv1.in_channels} -> {conv1.out_channels} -> "
+                f"{aspp.dilation6.conv2.out_channels} -> {aspp.dilation6.predictor.out_channels}"
+                "; losses " + "; ".join(", ".join(f"{k} {sc[k]:.4f}" for k in WSJDS_KEYS)
+                                        for sc in probe.step_scalars)
+                + f"; step ms {[round(t, 1) for t in steps]}, warm {warm:.1f} ms = "
+                f"{1e3 / warm:.2f} img/s; peak memory {peak_gb:.2f} GB; launches (A fwd, A bwd, "
+                f"C, D, D bwd) a step {per_step}, an eval image {per_image}; eval-only AP50 "
+                f"{ap:.3f}; first test image's {n_dets} detections, masks {mask_shape} and "
+                f"{n_inst} instance masks equal to the all-plain path's on {smi}")
+            log("wsjds", "profiled step, range host/device ms: " +
+                ", ".join(f"{n} {host[n]:.2f}/{dev[n]:.2f}" for n in WSJDS_RANGES)
+                + f", device outside the ranges {other:.2f}; busy {busy:.2f} of "
+                f"{steps[-1]:.2f} ms ({100 * busy / steps[-1]:.1f}%, profiler on) on {smi}")
+            del trainer, probe, aspp, conv1
+            ProbeTrainer.runs.clear()
+            torch.cuda.empty_cache()
+            _aspp_times(device, smi)
+            for csc_tau, constraint in ((0.0, False), (0.7, True)):   # 0.7: the default
+                extra = _wsjds_step(cfg, device, smi, csc_tau=csc_tau, constraint=constraint)
+                launches = tuple(a + b for a, b in zip(launches, extra))
+                torch.cuda.empty_cache()
+        finally:
+            cli.Stage1Trainer = cli_trainer
+            os.chdir(cwd)
+            logging.getLogger(cli.__name__).removeHandler(records)
+            for h in root.handlers:
+                if h not in saved[0]:
+                    h.close()
+            root.handlers[:], root.level = saved
+    _set_more_counts(launches)
+    return dict(zip(names, launches))
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging its wall seconds."""
     t0 = time.perf_counter()
@@ -2711,13 +2999,14 @@ def main() -> int:
     single_launches = timed("15 single-view heads", phase_single_view, device, smi)
     more_launches = timed("16 CSC, WS-ResNet-50, ROIAlignV2", phase_single_view_more, device,
                           smi)
+    wsjds_launches = timed("17 WSJDS", phase_wsjds, device, smi)
     paths = {"stage-1 inference": infer_launches, "stage-1 training": train_launches,
              "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches,
              "stage-2 training": stage2_train_launches,
              "stage-3 split and training": stage3_train_launches,
              "pipeline and TTA": pipeline_launches, "data parallel": ddp_launches,
              "single-view heads": single_launches,
-             "CSC, WS-ResNet-50, ROIAlignV2": more_launches}
+             "CSC, WS-ResNet-50, ROIAlignV2": more_launches, "WSJDS": wsjds_launches}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd",
                           "roi_align_bwd", "roi_loop_pool_fwd")}

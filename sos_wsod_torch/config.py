@@ -184,6 +184,11 @@ def get_cfg() -> CfgNode:
                              "NUM_CONV": 0, "CONV_DIM": 256, "NORM": "",
                              "CLS_AGNOSTIC_BBOX_REG": False, "TRAIN_ON_PRED_BOXES": False,
                              "DAN_DIM": [4096, 4096]},
+            # the WSJDS head's ASPP branch; no module reads these keys, as in
+            # the JAX package, whose GeneralizedRCNNWSL.from_cfg does not either
+            "SEM_SEG_HEAD": {"NAME": "SemSegFPNHead", "NUM_CLASSES": 54,
+                             "ASSP_CONVS_DIM": [1024, 1024], "MASK_SOFTMAX": False,
+                             "CONSTRAINT": False},
         },
         "INPUT": {"MIN_SIZE_TRAIN": (800,), "MAX_SIZE_TRAIN": 1333,
                   "MIN_SIZE_TEST": 800, "MAX_SIZE_TEST": 1333,

@@ -127,7 +127,10 @@ def inference_on_samples(model, data_iter: Iterable, evaluator, device) -> int:
     """Drive ``model.predict`` over samples with the keys of the JAX package's
     ``DatasetMapperTest`` (image, valid_hw, boxes, objectness, prop_valid,
     image_hw, orig_hw, image_id) and hand each image's rescaled detections to
-    ``evaluator.process_single``. Returns the number of images.
+    ``evaluator.process_single``. Returns the number of images. The
+    detections are the first output of ``predict``: a WSJDS model also
+    returns its class masks, which no evaluator reads (the JAX package's
+    inference unpacks three outputs and raises for it).
 
     Runs under ``torch.inference_mode()``, with bfloat16 autocast when the
     model's ``compute_dtype`` is bfloat16. The profiler ranges ``h2d`` and
@@ -143,7 +146,7 @@ def inference_on_samples(model, data_iter: Iterable, evaluator, device) -> int:
             with record_function("h2d"):
                 batch = {k: torch.as_tensor(v, device=device)
                          for k, v in sample.items() if k != "image_id"}
-            det, _, _ = model.predict(batch)
+            det = model.predict(batch)[0]   # a WSJDS model's masks go unread
             with record_function("rescale_eval"):
                 det = rescale_detections(det, batch["image_hw"], batch["orig_hw"])
                 evaluator.process_single(

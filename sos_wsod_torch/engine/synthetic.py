@@ -189,25 +189,47 @@ def random_ws_resnet_state_dict(depth: int, seed: int, prefix: str = "backbone."
     return sd
 
 
+def random_conv_state_dict(shapes: Dict[str, Tuple[int, ...]], seed: int
+                           ) -> Dict[str, np.ndarray]:
+    """Random weights for convs with biases, by name and shape (``*.weight``
+    (out, in, kh, kw), ``*.bias``): msra-scaled normals (std sqrt(2 /
+    fan_in), the scale of the JAX package's he_normal) and zero biases, in
+    sorted name order. For WSJDS's ASPP head."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name in sorted(shapes):
+        shape = tuple(shapes[name])
+        if name.endswith(".bias"):
+            sd[name] = np.zeros(shape, np.float32)
+        else:
+            std = np.float32(np.sqrt(2.0 / int(np.prod(shape[1:]))))
+            sd[name] = rng.standard_normal(shape, dtype=np.float32) * std
+    return sd
+
+
 def build_synthetic_model(cfg, device, seed: int):
     """The stage-1 model of ``cfg`` (``build_stage1_model``: MultiInputRCNN
     or GeneralizedRCNNWSL) with random weights from ``seed`` on ``device``,
     in eval mode. The blobs are drawn for the OICR+ model; the weights a
-    model lacks (refinement branches of WSDDN, ContextLocNet and CSC, box
-    regressors of branches without regression) are dropped. A WS-ResNet
+    model lacks (refinement branches of WSDDN, ContextLocNet, CSC and WSJDS,
+    box regressors of branches without regression) are dropped. A WS-ResNet
     model takes its trunk from ``random_ws_resnet_state_dict`` and a DAN fc1
-    as wide as its pooled ROIs."""
+    as wide as its pooled ROIs; a WSJDS model its ASPP head from
+    ``random_conv_state_dict``."""
     model = build_stage1_model(cfg, device="meta")
     fc1_in = model.roi_heads.dan.fc1.in_features
     blobs = random_d2_wsl_blobs(seed, cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.WSL.REFINE_NUM,
                                 cfg.MODEL.ROI_BOX_HEAD.DAN_DIM, fc1_in)
-    if getattr(model, "backbone_name", "vgg16") == "vgg16":
-        return load_weights(model, state_dict_from_d2_wsl(blobs, keep=model.state_dict()),
-                            device)
-    head = {k: v for k, v in blobs.items() if not k.startswith("backbone.")}
-    sd = state_dict_from_d2_wsl(head, keep=model.state_dict())
-    sd.update((k, torch.from_numpy(v)) for k, v in
-              random_ws_resnet_state_dict(cfg.MODEL.RESNETS.DEPTH, seed).items())
+    vgg = getattr(model, "backbone_name", "vgg16") == "vgg16"
+    if not vgg:
+        blobs = {k: v for k, v in blobs.items() if not k.startswith("backbone.")}
+    sd = state_dict_from_d2_wsl(blobs, keep=model.state_dict())
+    if not vgg:
+        sd.update((k, torch.from_numpy(v)) for k, v in
+                  random_ws_resnet_state_dict(cfg.MODEL.RESNETS.DEPTH, seed).items())
+    aspp = {k: tuple(v.shape) for k, v in model.state_dict().items()
+            if k.startswith("roi_heads.sem_seg_head.")}
+    sd.update((k, torch.from_numpy(v)) for k, v in random_conv_state_dict(aspp, seed).items())
     return load_weights(model, sd, device)
 
 

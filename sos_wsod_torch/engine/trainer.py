@@ -26,8 +26,8 @@ under ``no_sync``, and DDP's mean over the ranks of the gradients, each the
 rank's per-image mean, is the global batch's mean (the losses are per-image
 means, so no count crosses the ranks). The logged scalars are means over
 the ranks (``comm.reduce_dict``). Profiler ranges: ``h2d``, ``backward``,
-``optimizer`` and those of ``MultiInputRCNN.loss``; ``cpg`` for the CSC
-head's CPG maps, computed before each image's loss.
+``optimizer`` and those of ``MultiInputRCNN.loss``; ``cpg`` for the CSC and
+WSJDS heads' CPG maps, computed before each image's loss.
 """
 from __future__ import annotations
 
@@ -159,10 +159,10 @@ class Stage1Trainer(DataParallelMixin, TrainerBase):
     (``data.build.batched_stream``) or one sample; ``model`` is a
     ``MultiInputRCNN`` (4 views an image) or a ``GeneralizedRCNNWSL`` (one),
     and batches go to the device of its parameters. A model whose
-    ``uses_iter`` is set (CMIL, CSC) gets the step, ``iter``, as the loss's
-    ``cur_iter``, as the JAX step injects it; a resumed run goes on from
-    the checkpoint's. A model whose ``uses_cpgs`` is set (CSC) gets each
-    image's CPG maps as the loss's ``cpgs`` (``_cpgs``)."""
+    ``uses_iter`` is set (CMIL, CSC, WSJDS) gets the step, ``iter``, as the
+    loss's ``cur_iter``, as the JAX step injects it; a resumed run goes on
+    from the checkpoint's. A model whose ``uses_cpgs`` is set (CSC, WSJDS)
+    gets each image's CPG maps as the loss's ``cpgs`` (``_cpgs``)."""
 
     def __init__(self, cfg, model, data_iter):
         super().__init__()
@@ -226,8 +226,8 @@ class Stage1Trainer(DataParallelMixin, TrainerBase):
         self.steps_done = self.iter + 1
 
     def _cpgs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The CSC head's CPG maps of one image, from the module itself
-        (outside DDP's forward, so that its reducer never sees their
+        """The CSC or WSJDS head's CPG maps of one image, from the module
+        itself (outside DDP's forward, so that its reducer never sees their
         backward), with the dropout masks the loss's forward then draws
         again: the generator's state is restored after them, as the JAX
         step hands both forwards one dropout key."""

@@ -92,6 +92,14 @@ class CSCROIHead(nn.Module):
         """cpgs (K, H, W) from ``compute_cpg``, in the image coordinates of
         ``boxes``; ``use_csc`` is False past WSL.CSC_MAX_ITER."""
         scores = self.scores(pooled, prop_valid, generator)
+        return self._csc_losses(scores, cpgs, boxes, prop_valid, gt_classes_oh, use_csc)
+
+    def _csc_losses(self, scores: torch.Tensor, cpgs: torch.Tensor, boxes: torch.Tensor,
+                    prop_valid: torch.Tensor, gt_classes_oh: torch.Tensor, use_csc: bool,
+                    prefix: str = "", loss_weight: float = 1.0) -> Dict[str, torch.Tensor]:
+        """``csc_mil_loss`` with W from the CSC op on ``cpgs`` (W_pos = 1,
+        W_neg = 0 unless ``use_csc``), its keys prefixed and its terms
+        scaled by ``loss_weight``."""
         valid = prop_valid[:, None]
         if use_csc:
             with record_function("csc"):
@@ -105,7 +113,8 @@ class CSCROIHead(nn.Module):
             nl = torch.zeros_like(pl)
             w_pos = valid.expand_as(scores).float()
             w_neg = torch.zeros_like(scores)
-        return csc_mil_loss(scores, w_pos, w_neg, pl, nl, self.mean_loss)
+        losses = csc_mil_loss(scores, w_pos, w_neg, pl, nl, self.mean_loss)
+        return {prefix + k: v * loss_weight for k, v in losses.items()}
 
     def predict(self, pooled: torch.Tensor, boxes: torch.Tensor, prop_valid: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

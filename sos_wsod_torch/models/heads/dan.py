@@ -27,15 +27,20 @@ class DAN(nn.Module):
         self.num_fc = len(fc_dims)
         self.dropout_rate = dropout_rate
 
-    def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        if not self.training or self.dropout_rate == 0.0:
-            return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout_rate
-        return x * keep.to(x.dtype) * (1.0 / (1.0 - self.dropout_rate))
-
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (P, PH, PW, C) -> (P, fc_dims[-1])."""
         x = x.reshape(x.shape[0], -1)
         for i in range(self.num_fc):
-            x = self._dropout(F.relu(getattr(self, f"fc{i + 1}")(x)), generator)
+            x = dropout(F.relu(getattr(self, f"fc{i + 1}")(x)), self.dropout_rate, self.training,
+                        generator)
         return x
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout in training mode, its keep mask drawn from
+    ``generator`` (PyTorch's default generator when None)."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return x * keep.to(x.dtype) * (1.0 / (1.0 - rate))

@@ -4,7 +4,7 @@ Counterpart of ``sos_wsod_tpu/models/meta/rcnn_wsl_single.py`` (the
 reference's GeneralizedRCNNWSL): a backbone on one image (VGG16 with dilated
 conv5, or WS-ResNet; stride 8, or 16 when undilated), its precomputed
 proposals, a pooler, and one of the WSOD ROI heads: WSDDN, OICR, PCL, CMIL,
-ContextLocNet or CSC. The ROIPool pooler (kernel A) and the ROIAlign /
+ContextLocNet, CSC or WSJDS. The ROIPool pooler (kernel A) and the ROIAlign /
 ROIAlignV2 poolers (kernels D and D bwd) feed every head but ContextLocNet,
 which takes the ROILoopPool pooler (kernel E): its [box; frame; context]
 rows. ROIPool and ROILoopPool fuse the objectness weighting (objectness + 1)
@@ -13,13 +13,14 @@ pool picks one cell, so the two orders give the same values. ROIAlign's
 bilinear sum does not commute with the rounding to bf16, so its output is
 scaled after the pool, as the JAX head does.
 
-The CSC head's loss takes class peak gradient (CPG) maps of the image:
-``compute_cpgs`` (the gradient of each active class's score with respect to
-the image, through the whole model, frozen stages included as in the
-reference) before the loss, with the same dropout masks.
-
-Not ported yet, and refused with NotImplementedError: the WSJDS head (the
-ASPP head and the dense CRF).
+The CSC and WSJDS heads' losses take class peak gradient (CPG) maps of the
+image: ``compute_cpgs`` (the gradient of each active class's score with
+respect to the image, through the whole model, frozen stages included as in
+the reference) before the loss, with the same dropout masks. The WSJDS head
+also takes the backbone's map (its ASPP segmentation branch) and the raw
+image (the dense CRF of its constraint, ``wsjds_constraint``, which no
+config key reaches, as in the JAX package), and its ``predict`` returns the
+class masks too.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ from ..heads.csc import CSCROIHead, compute_cpg
 from ..heads.pcl import PCLROIHead
 from ..heads.single_view import OICRROIHead, WSDDNROIHead
 from ..heads.wsddn import mil_image_scores
+from ..heads.wsjds import WSJDSROIHead
 from ..postprocess import fast_rcnn_inference_single
 from .rcnn_wsl import MultiInputRCNN, normalize_images
 
@@ -54,14 +56,7 @@ HEAD_NAME_MAP = {
     "CSCROIHeads": "CSC",
     "WSJDSROIHeads": "WSJDS",
 }
-PORTED_HEADS = ("WSDDN", "OICR", "PCL", "CMIL", "ContextLocNet", "CSC")
 POOLERS = ("ROIPool", "ROILoopPool", "ROIAlign", "ROIAlignV2")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"GeneralizedRCNNWSL: {what} is not ported to sos_wsod_torch yet; it belongs to a "
-        "later slice of the port (ROADMAP.md, Queue 1)")
 
 
 class GeneralizedRCNNWSL(nn.Module):
@@ -89,13 +84,12 @@ class GeneralizedRCNNWSL(nn.Module):
         max_iter: int = 200000,
         csc_tau: float = 0.7,
         csc_max_iter: int = 35000,
+        wsjds_constraint: bool = False,
         compute_dtype: torch.dtype = torch.float32,
         device=None,
     ):
         super().__init__()
-        if head == "WSJDS":
-            raise _not_ported("the WSJDS head (the ASPP head and the dense CRF)")
-        if head not in PORTED_HEADS:
+        if head not in HEAD_NAME_MAP.values():
             raise ValueError(f"Unknown WSL head {head!r}")
         if pooler_type not in POOLERS:
             raise ValueError(f"Unsupported pooler {pooler_type!r}")
@@ -125,6 +119,9 @@ class GeneralizedRCNNWSL(nn.Module):
                                          max_iter=max_iter, **common)
         elif head == "CSC":
             self.roi_heads = CSCROIHead(in_features, **common)
+        elif head == "WSJDS":
+            self.roi_heads = WSJDSROIHead(in_features, self.backbone.out_channels, tau=csc_tau,
+                                          constraint=wsjds_constraint, **common)
         else:
             self.roi_heads = ContextLocNetROIHead(in_features, **common)
         self.backbone_name = backbone_name
@@ -143,14 +140,14 @@ class GeneralizedRCNNWSL(nn.Module):
 
     @property
     def uses_iter(self) -> bool:
-        """Whether ``loss`` reads the training step (CMIL's lambda, CSC's
-        CSC_MAX_ITER switch)."""
-        return self.head in ("CMIL", "CSC")
+        """Whether ``loss`` reads the training step (CMIL's lambda, the
+        CSC_MAX_ITER switch of CSC and WSJDS)."""
+        return self.head in ("CMIL", "CSC", "WSJDS")
 
     @property
     def uses_cpgs(self) -> bool:
         """Whether ``loss`` takes the CPG maps of ``compute_cpgs``."""
-        return self.head == "CSC"
+        return self.head in ("CSC", "WSJDS")
 
     def backbone_features(self, image: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
         """(H, W, 3) BGR raw, (2,) valid extent -> the last stage's map as
@@ -178,24 +175,31 @@ class GeneralizedRCNNWSL(nn.Module):
         pool = roi_pool if self.pooler_type == "ROIPool" else roi_loop_pool
         return pool(feat, boxes, valid, scale, spatial_scale=1.0 / self.stride, output_size=res)
 
-    def _pooled(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _pooled(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the backbone's (H/s, W/s, C) map, the pooled ROIs)."""
         with record_function("backbone"):
             feat = self.backbone_features(batch["image"], batch["valid_hw"])
         with record_function("roi_pool"):
-            return self._pool(feat, batch["boxes"], batch["prop_valid"], batch["objectness"])
+            return feat, self._pool(feat, batch["boxes"], batch["prop_valid"],
+                                    batch["objectness"])
 
     def loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
              cur_iter: int = 0, cpgs: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One image. batch: image (H, W, 3) BGR raw (padded), valid_hw (2,),
         boxes (P, 4), objectness (P,), prop_valid (P,) bool, gt_classes_oh
-        (K,). ``cur_iter`` is the training step (read by CMIL and CSC);
-        ``cpgs`` (K, H, W), CSC's maps from ``compute_cpgs``. Returns the
-        head's f32 loss terms; dropout draws from ``generator``. Profiler
-        ranges: ``backbone``, ``roi_pool`` and the head's."""
-        pooled = self._pooled(batch)
+        (K,). ``cur_iter`` is the training step (read by CMIL, CSC and
+        WSJDS); ``cpgs`` (K, H, W), the CSC and WSJDS heads' maps from
+        ``compute_cpgs``. Returns the head's f32 loss terms; dropout draws
+        from ``generator``. Profiler ranges: ``backbone``, ``roi_pool`` and
+        the head's."""
+        feat, pooled = self._pooled(batch)
         if self.head == "CSC":
             return self.roi_heads.losses(pooled, batch["boxes"], batch["prop_valid"],
                                          batch["gt_classes_oh"], cpgs,
+                                         cur_iter <= self.csc_max_iter, generator)
+        if self.head == "WSJDS":
+            return self.roi_heads.losses(pooled, batch["boxes"], batch["prop_valid"],
+                                         batch["gt_classes_oh"], cpgs, feat, batch["image"],
                                          cur_iter <= self.csc_max_iter, generator)
         args = (pooled, batch["boxes"], batch["prop_valid"], batch["gt_classes_oh"], generator)
         if self.head == "CMIL":
@@ -204,12 +208,13 @@ class GeneralizedRCNNWSL(nn.Module):
 
     def forward_scores(self, batch: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Image -> the (P, K) MIL proposal scores of the CSC head, in
-        training mode (dropout from ``generator``): the function whose
+        """Image -> the (P, K) MIL proposal scores of the CSC or WSJDS head,
+        in training mode (dropout from ``generator``): the function whose
         gradient with respect to the image gives the CPG maps."""
-        if self.head != "CSC":
-            raise ValueError(f"forward_scores is the CSC head's; this model has {self.head}")
-        return self.roi_heads.scores(self._pooled(batch), batch["prop_valid"], generator)
+        if not self.uses_cpgs:
+            raise ValueError("forward_scores is the CSC and WSJDS heads'; this model has "
+                             f"{self.head}")
+        return self.roi_heads.scores(self._pooled(batch)[1], batch["prop_valid"], generator)
 
     def compute_cpgs(self, batch: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -226,26 +231,34 @@ class GeneralizedRCNNWSL(nn.Module):
             return compute_cpg(scores, image, batch["gt_classes_oh"],
                                mil_image_scores(scores.detach()), tau=self.csc_tau)
 
+    def _predict(self, batch: Dict[str, torch.Tensor]):
+        feat, pooled = self._pooled(batch)
+        with record_function("box_head"):
+            scores, boxes = self.roi_heads.predict(pooled, batch["boxes"], batch["prop_valid"])
+        return feat, scores, boxes
+
     def predict_scores(self, batch: Dict[str, torch.Tensor]
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(all_scores (P, K+1) background last, all_boxes (P, K*4) or the
-        proposals (P, 4)), without the NMS."""
-        pooled = self._pooled(batch)
-        with record_function("box_head"):
-            return self.roi_heads.predict(pooled, batch["boxes"], batch["prop_valid"])
+        proposals (P, 4)), without the NMS (nor WSJDS's masks)."""
+        return self._predict(batch)[1:]
 
-    def predict(self, batch: Dict[str, torch.Tensor]
-                ) -> Tuple[Detections, torch.Tensor, torch.Tensor]:
+    def predict(self, batch: Dict[str, torch.Tensor]):
         """Single-image inference, the batch of ``MultiInputRCNN.predict``
         (image, valid_hw, boxes, objectness, prop_valid, image_hw). Returns
-        (Detections, all_scores, all_boxes). Profiler ranges ``backbone``,
-        ``roi_pool``, ``box_head``, ``nms_topk``."""
-        scores, pred_boxes = self.predict_scores(batch)
+        (Detections, all_scores, all_boxes), and for WSJDS also its (K, H, W)
+        f32 class masks at the canvas size, as the JAX model does. Profiler
+        ranges ``backbone``, ``roi_pool``, ``box_head``, ``nms_topk`` (and
+        WSJDS's ``sem_seg``)."""
+        feat, scores, pred_boxes = self._predict(batch)
         with record_function("nms_topk"):
             det = fast_rcnn_inference_single(
                 pred_boxes, scores, batch["prop_valid"], batch["image_hw"],
                 score_thresh=self.score_thresh, nms_thresh=self.nms_thresh,
                 topk=self.detections_per_image)
+        if self.head == "WSJDS":
+            return det, scores, pred_boxes, self.roi_heads.predict_masks(
+                feat, tuple(batch["image"].shape[:2]))
         return det, scores, pred_boxes
 
     @classmethod

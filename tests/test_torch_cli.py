@@ -416,17 +416,13 @@ SINGLE = ["MODEL.META_ARCHITECTURE", "GeneralizedRCNNWSL", "WSL.REFINE_NUM", "3"
 
 
 def test_cli_refuses_what_is_not_ported(tree, monkeypatch):
-    """GeneralizedRCNNWSL trains (below, and its CSC head, WS-ResNet
-    backbone and ROIAlign poolers in tests/test_torch_cli_wsl_more.py), but
-    its WSJDS head belongs to a later slice: the CLI raises
-    NotImplementedError naming it, before any training."""
+    """More than one GPU runs through engine.launch's process group: main
+    called alone with --num-gpus 2 refuses it, before any training. (Every
+    single-view head trains: below, tests/test_torch_cli_wsl_more.py and
+    tests/test_torch_cli_wsjds.py.)"""
     monkeypatch.chdir(tree)
-    # more than one GPU is ported, through engine.launch: main alone refuses it
     with pytest.raises(RuntimeError, match="no process group"):
         cli.main(_args("--num-gpus", "2", opts=["OUTPUT_DIR", "refused"]))
-    with pytest.raises(NotImplementedError, match="WSJDS head.*later slice"):
-        cli.main(_args(opts=["OUTPUT_DIR", "refused", *SINGLE,
-                             "MODEL.ROI_HEADS.NAME", "WSJDSROIHeads"]))
     assert not (tree / "refused" / "model_final.pth").exists()
 
 

@@ -183,20 +183,29 @@ assert {"sos_wsod_torch.models.meta.rcnn_wsl_single", "sos_wsod_torch.models.hea
         "sos_wsod_torch.models.heads.contextlocnet", "sos_wsod_torch.ops.pcl_loss",
         "sos_wsod_torch.ops.roi_merge", "sos_wsod_torch.ops.kmeans",
         "sos_wsod_torch.ops.roi_loop_pool", "sos_wsod_torch.kernels.roi_loop_pool",
-        "sos_wsod_torch.tools.bench_roi_loop_pool"} <= set(names)
+        "sos_wsod_torch.tools.bench_roi_loop_pool", "sos_wsod_torch.models.heads.aspp",
+        "sos_wsod_torch.models.heads.wsjds", "sos_wsod_torch.ops.dense_crf"} <= set(names)
 with tempfile.TemporaryDirectory() as tmp:
     write_synthetic_voc(tmp, (("train", 1), ("test", 1)), (50, 70), 30, 0)
     os.chdir(tmp)
-    for head in ("WSDDN", "OICR", "PCL", "CMIL", "ContextLocNet"):
+    for head in ("WSDDN", "OICR", "PCL", "CMIL", "ContextLocNet", "WSJDS"):
         sv_opts = [*cli_opts, "MODEL.META_ARCHITECTURE", "GeneralizedRCNNWSL",
                    "MODEL.ROI_HEADS.NAME", head + "ROIHeads", "WSL.REFINE_NUM", "3",
                    "WSL.REFINE_REG", "[False, False, False]", "OUTPUT_DIR", "sv_" + head]
         if head == "ContextLocNet":
             sv_opts += ["MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROILoopPool"]
-        for flags in ([], ["--eval-only"]) if head == "ContextLocNet" else ([],):
+        for flags in ([], ["--eval-only"]) if head in ("ContextLocNet", "WSJDS") else ([],):
             train_net_stage1.main(default_argument_parser().parse_args(
                 ["--config-file", str(smoke["CONFIG"]), *flags, *sv_opts]))
     os.chdir(cwd)
+
+# WSJDS's constraint: the dense CRF, built from the port's own C++ source
+from sos_wsod_torch.kernels import build
+from sos_wsod_torch.models.heads.aspp import crf_constraint
+x_crf, w_crf = crf_constraint(torch.rand(24, 32, 3) * 255, torch.rand(2, 24, 32))
+assert x_crf.shape == w_crf.shape == (2, 24, 32) and bool(torch.isfinite(x_crf).all())
+assert build.build_host("dense_crf").parent == build.BUILD_DIR
+assert build.NATIVE_DIR.parent.name == "sos_wsod_torch"
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu", "sklearn")
@@ -219,8 +228,8 @@ def test_port_and_chip_smoke_import_without_jax():
     a semi-supervised step on its dataseed; and the hand-offs: the stage-1
     dump of train, val and test, PGF and the multi-label tool, the _wsl
     loader on their output, and the stage-1 TTA CLI; and a step of each
-    single-view head through the stage-1 CLI, with scikit-learn blocked
-    too."""
+    single-view head through the stage-1 CLI (WSJDS's --eval-only too),
+    with scikit-learn blocked too; and WSJDS's host CRF round trip."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
