@@ -218,7 +218,27 @@ Phases, one line each; any failure raises and the script exits non-zero:
      the seeded weights with csc_tau 0 (A bwd once in ``cpg`` for each class
      the image lists; positive segmentation targets) and one with the CRF
      constraint (``from_cfg(..., wsjds_constraint=True)``, which no config
-     key reaches), the host CRF at the canvas in its ``crf`` range.
+     key reaches), the host CRF at the canvas in its ``crf`` range;
+ 18. the UWSOD family (sos_wsod_torch/models/meta/rcnn_uwsod.py, which no
+     config or CLI reaches: its ``loss`` and ``predict`` driven directly)
+     at full width, random weights from the seed (engine/synthetic.py:
+     build_synthetic_uwsod), bf16 autocast, one 688 x 917 image of noise on
+     the 704 x 960 canvas a step: UWSODRCNN (VGG16, RPN 5 x 3 anchors on
+     plain5, top-k 2000 -> 1000, DAN 4096/4096, K = 4 regressing branches,
+     20 classes) and MRRPUWSODRCNN (the same over the MRRP VGG16's three
+     branches). For each: predict on 2 images from the seeded weights
+     (A fwd once a branch and C twice an image; finite scores, detections
+     inside the image, the first image's equal to the all-plain path's),
+     then 4 SGD steps with solver/build.py on the stage-1 config's solver
+     (the first cold, the second with refine_mist and sampling_on: MIST's
+     NMS once a branch; the last profiled): every loss finite, A fwd, A bwd
+     and C a step, and the first step's pools (one a branch, the other
+     branches' rows masked) against their plain versions: A fwd
+     bit-identical on the card, masked rows 0, A bwd on the step's own
+     gradient bit-identical to the plain backward run on the CPU; the warm
+     step, peak memory, the ranges and busy share of the profiled step; then
+     the MRRP stage's forward and forward + backward by conv form (cuDNN's
+     dilated conv in channels_last, in NCHW, and on the d x d sub-grids).
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the stage-1 inference throughput.
@@ -346,6 +366,14 @@ WSJDS_KEYS = ("loss_cls_pos", "loss_cls_neg", "loss_sem_seg", "mask_loss_cls_pos
               "mask_loss_cls_neg", "total_loss")
 WSJDS_RANGES = ("h2d", "cpg", "backbone", "roi_pool", "box_head", "csc", "sem_seg", "crf",
                 "backward", "optimizer")
+UWSOD_MODELS = ("UWSODRCNN", "MRRPUWSODRCNN")
+UWSOD_CANVAS = (704, 960)        # the padded canvas of a 688 x 917 image
+UWSOD_IMAGE_HW = (688, 917)
+UWSOD_KW = {}                    # the models' defaults: VOC's 20 classes, DAN 4096/4096, K = 4
+UWSOD_STEPS = 3
+UWSOD_PREDICT_IMAGES = 2
+UWSOD_RANGES = ("backbone", "rpn", "roi_pool", "box_head", "mining", "losses", "backward",
+                "optimizer")
 
 
 def log(phase: str, msg: str) -> None:
@@ -2966,6 +2994,302 @@ def phase_wsjds(device, smi: str) -> dict:
     return dict(zip(names, launches))
 
 
+def _uwsod_batch(seed: int, device, num_classes: int) -> dict:
+    """One image as the UWSOD models take it: UWSOD_IMAGE_HW of uniform
+    noise on the UWSOD_CANVAS, two classes present."""
+    rng = np.random.default_rng(seed)
+    h, w = UWSOD_IMAGE_HW
+    image = np.zeros(UWSOD_CANVAS + (3,), np.float32)
+    image[:h, :w] = rng.uniform(0, 255, (h, w, 3))
+    gt = np.zeros(num_classes, np.float32)
+    gt[rng.choice(num_classes, 2, replace=False)] = 1.0
+    hw = torch.tensor([h, w], dtype=torch.int32, device=device)
+    return {"image": torch.from_numpy(image).to(device), "valid_hw": hw, "image_hw": hw.clone(),
+            "gt_classes_oh": torch.from_numpy(gt).to(device)}
+
+
+class _PoolProbe:
+    """Stands in for ``roi_pool`` in models/meta/rcnn_uwsod.py for one step:
+    records each call's map, boxes, valid rows and row scale, and the
+    gradient that reaches its output."""
+
+    def __init__(self, pool):
+        self.pool, self.calls = pool, []
+
+    def __call__(self, feat, boxes, valid, row_scale, **kw):
+        out = self.pool(feat, boxes, valid, row_scale, **kw)
+        rec = {"feat": feat.detach(), "boxes": boxes, "valid": valid, "scale": row_scale,
+               "spatial_scale": kw["spatial_scale"]}
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.__setitem__("grad", g.detach()))
+        self.calls.append(rec)
+        return out
+
+
+def _uwsod_pool_checks(name: str, probe: _PoolProbe) -> str:
+    """Kernel A fwd on each recorded pool's own map and proposals (one a
+    step, one a branch for MRRP: the rows of the other branches masked)
+    bit-identical to its plain version on the card, masked rows 0 with no
+    argmax; A bwd on the step's own gradient bit-identical to the plain
+    backward run on the CPU. These launches do not count."""
+    from sos_wsod_torch.kernels.roi_pool import roi_pool_fwd_cuda
+    from sos_wsod_torch.kernels.roi_pool_bwd import roi_pool_bwd_cuda
+    from sos_wsod_torch.ops.roi_pool import (bin_windows, roi_pool_backward_reference,
+                                             roi_pool_reference)
+
+    saved = _more_counts()
+    parts = []
+    for i, rec in enumerate(probe.calls):
+        feat, valid = rec["feat"], rec["valid"]
+        h, w, c = feat.shape
+        win = bin_windows(rec["boxes"], valid, h, w, 7, 7, rec["spatial_scale"])
+        out_k, pos_k = roi_pool_fwd_cuda(feat, *win, valid, rec["scale"])
+        out_p, pos_p = roi_pool_reference(feat, *win, valid, rec["scale"])
+        _assert_same(f"{name} A fwd, pool {i}", out_k, pos_k, out_p, pos_p)
+        if bool(out_k[~valid].any()) or bool((pos_k[~valid] >= 0).any()):
+            raise AssertionError(f"{name} A fwd, pool {i}: a masked row is not 0")
+        rs = rec["scale"].to(feat.dtype).float()
+        acc_k = roi_pool_bwd_cuda(rec["grad"].contiguous(), pos_k, rs, *win, valid, h, w)
+        acc_p = roi_pool_backward_reference(rec["grad"].cpu(), pos_k.cpu(), rs.cpu(), h, w)
+        if not torch.equal(acc_k.cpu(), acc_p):
+            n = int((acc_k.cpu() != acc_p).sum())
+            raise AssertionError(f"{name} A bwd, pool {i}: {n} cells differ from the plain "
+                                 "backward run on the CPU")
+        parts.append(f"pool {i}: {int(valid.sum())} of {valid.shape[0]} rows on "
+                     f"{h}x{w}x{c} {feat.dtype}")
+    torch.cuda.synchronize()
+    _set_more_counts(saved)
+    return "; ".join(parts)
+
+
+def _mrrp_conv_times(device, smi: str) -> None:
+    """The MRRP stage (3 x MRRPConv 512 -> 512 at dilations 1, 2, 3 on
+    three branches of one stage-4 map, ReLU) at plain4's 87 x 119 x 512 on
+    the 704 x 960 canvas, bf16: forward, and forward + backward (the input's
+    gradient too), with each branch's conv as cuDNN's dilated conv in
+    channels_last (the model's memory format, ``engine/weights.py``), in
+    NCHW, and as a plain 3x3 conv on the d x d sub-grids
+    (``heads/aspp.py:_conv_nchw``)."""
+    import types
+
+    from sos_wsod_torch.models.backbones import mrrp
+    from sos_wsod_torch.models.heads import aspp
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    stage = mrrp.MRRPPlainStage(512, 512, 3, (1, 2, 3), device=device)
+    stage = stage.to(memory_format=torch.channels_last)
+    x = (torch.randn((1, 512, 87, 119), generator=gen, device=device) * 10).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+
+    def run(backward):
+        with torch.autocast(torch.device(device).type, dtype=torch.bfloat16):
+            out = stage(x.expand(3, *x.shape[1:]))
+        if backward:
+            out.float().sum().backward()
+
+    def nchw(x, weight, bias, dilation, padding):
+        return F.conv2d(x.contiguous(), weight.contiguous(), bias, padding=padding,
+                        dilation=dilation)
+
+    def sub_grids(x, weight, bias, dilation, padding):
+        conv = types.SimpleNamespace(weight=weight, bias=bias, dilation=(dilation, dilation),
+                                     stride=(1, 1), padding=(padding, padding))
+        return aspp._conv_nchw(conv, x.contiguous())
+
+    branch_conv = mrrp.branch_conv
+    times = {}
+    try:
+        for name, conv in (("dilated channels_last", branch_conv), ("dilated NCHW", nchw),
+                           ("sub-grids", sub_grids)):
+            mrrp.branch_conv = conv
+            times[name] = (cuda_ms(lambda: run(False), 10), cuda_ms(lambda: run(True), 10))
+    finally:
+        mrrp.branch_conv = branch_conv
+    log("uwsod", "MRRP stage at 3 x 87 x 119 x 512 bf16, forward / forward + backward ms: "
+        + ", ".join(f"{k} {f:.2f} / {fb:.2f}" for k, (f, fb) in times.items())
+        + f" on {smi}")
+
+
+def _uwsod_predict(name: str, model, smi: str) -> tuple:
+    """``predict`` in bf16 on UWSOD_PREDICT_IMAGES images: finite scores of
+    the test top-k's slots, detections inside the image, the launches of A
+    fwd (one a branch) and C (the RPN's and the post-process's) an image, the
+    first image's detections equal to the all-plain path's. Returns the
+    launches an image."""
+    head, nb = model.roi_heads, len(model.levels)
+    dev_type = next(model.parameters()).device.type
+    model.eval()
+
+    def predict(seed):
+        batch = _uwsod_batch(seed, next(model.parameters()).device, head.num_classes)
+        with torch.inference_mode(), torch.autocast(dev_type, dtype=torch.bfloat16):
+            return model.predict(batch)
+
+    before = _more_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [predict(SEED + 100 + i) for i in range(UWSOD_PREDICT_IMAGES)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / UWSOD_PREDICT_IMAGES
+    launches = _more_counts()
+    got = tuple(a - b for a, b in zip(launches, before))
+    per_image = (nb, 0, 2, 0, 0)
+    if got != tuple(UWSOD_PREDICT_IMAGES * x for x in per_image):
+        raise AssertionError(f"{name}: predict launches {got} over {UWSOD_PREDICT_IMAGES} "
+                             f"images, expected {per_image} an image")
+    h, w = UWSOD_IMAGE_HW
+    for det, scores, boxes in outs:
+        b = det.boxes[det.valid]
+        if not (bool(torch.isfinite(scores).all()) and bool(torch.isfinite(boxes).all())
+                and scores.shape == (model.proposal_generator.post_nms_topk_test,
+                                     head.num_classes + 1)
+                and bool((b[:, 0::2] >= 0).all() and (b[:, 0::2] <= w).all())
+                and bool((b[:, 1::2] >= 0).all() and (b[:, 1::2] <= h).all())):
+            raise AssertionError(f"{name} predict: scores {tuple(scores.shape)}, "
+                                 f"{int(det.valid.sum())} detections {b[:4].tolist()}")
+    with _plain_versions(roi_pool=True):
+        plain = predict(SEED + 100)[0]
+    _set_more_counts(launches)
+    det = outs[0][0]
+    for f in ("boxes", "scores", "classes", "valid"):
+        if not torch.equal(getattr(det, f), getattr(plain, f)):
+            raise AssertionError(f"{name} predict: detections' {f} differ from the all-plain "
+                                 "path's")
+    if not bool(det.valid.any()):
+        raise AssertionError(f"{name} predict: no detection on the first image")
+    log("uwsod", f"{name} predict over {UWSOD_PREDICT_IMAGES} images from the seeded weights: "
+        f"{ms:.1f} ms an image (the first cold), launches (A fwd, A bwd, C, D, D bwd) an image "
+        f"{per_image}; the first image's {int(det.valid.sum())} detections equal to the "
+        f"all-plain path's on {smi}")
+    return per_image
+
+
+def _uwsod_train(name: str, model, cfg, smi: str) -> list:
+    """UWSOD_STEPS + 1 SGD steps (solver/build.py) in bf16 autocast, each on
+    a new image: the first cold with its pools checked by
+    ``_uwsod_pool_checks``, the second with refine_mist and sampling_on
+    (MIST's NMS once a branch, the subsampling), the last profiled. Every
+    loss finite, the launches of each step. Returns them."""
+    from sos_wsod_torch.models.meta import rcnn_uwsod
+    from sos_wsod_torch.solver.build import build_optimizer
+
+    head, nb, k = model.roi_heads, len(model.levels), model.roi_heads.refine_k
+    device = next(model.parameters()).device
+    model.train()
+    opt, sched = build_optimizer(cfg, model)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    want = {"loss_cls", "loss_rpn_cls", "loss_rpn_loc"} | {
+        f"loss_{t}_r{j}" for j in range(k) for t in ("cls", "box_reg")}
+    steps, launches, all_losses, prof, checked = [], [], [], None, ""
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(UWSOD_STEPS + 1):
+        batch = _uwsod_batch(SEED + i, device, head.num_classes)
+        head.refine_mist = head.sampling_on = i == 1
+        probe = _PoolProbe(rcnn_uwsod.roi_pool) if i == 0 else None
+        profiled = i == UWSOD_STEPS
+        ctx = torch.profiler.profile(activities=acts) if profiled else contextlib.nullcontext()
+        before = _more_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if probe is not None:
+            rcnn_uwsod.roi_pool = probe
+        try:
+            with ctx as p:
+                opt.zero_grad(set_to_none=True)
+                with torch.autocast(device.type, dtype=torch.bfloat16):
+                    losses = model.loss(batch, gen)
+                with torch.profiler.record_function("backward"):
+                    sum(losses.values()).backward()
+                with torch.profiler.record_function("optimizer"):
+                    opt.step()
+                    sched.step()
+                torch.cuda.synchronize()
+        finally:
+            if probe is not None:
+                rcnn_uwsod.roi_pool = probe.pool
+        steps.append((time.perf_counter() - t0) * 1e3)
+        launches.append(tuple(a - b for a, b in zip(_more_counts(), before)))
+        vals = {key: float(v.detach()) for key, v in losses.items()}
+        all_losses.append(vals)
+        if set(vals) != want or not np.isfinite(list(vals.values())).all():
+            raise AssertionError(f"{name} step {i}: losses {vals}")
+        if probe is not None:
+            if len(probe.calls) != nb:
+                raise AssertionError(f"{name}: {len(probe.calls)} pools in a step, expected {nb}")
+            checked = _uwsod_pool_checks(name, probe)
+            del probe
+        if profiled:
+            prof = p
+    head.refine_mist = head.sampling_on = False
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_launches = [(nb, nb, 1, 0, 0)] * (UWSOD_STEPS + 1)
+    want_launches[1] = (nb, nb, 1 + k, 0, 0)
+    if launches != want_launches:
+        raise AssertionError(f"{name}: launches (A fwd, A bwd, C, D, D bwd) per step {launches}, "
+                             f"expected {want_launches}")
+    host, dev, other = _range_ms(prof, UWSOD_RANGES)
+    busy = sum(dev.values()) + other
+    warm = statistics.median(steps[2:UWSOD_STEPS])
+    dan = [getattr(head.dan, f"fc{j + 1}") for j in range(head.dan.num_fc)]
+    log("uwsod", f"{name}: {nb} branch(es), K {k}, DAN "
+        + " -> ".join(str(d) for d in [dan[0].in_features] + [fc.out_features for fc in dan])
+        + f", RPN top-k {model.proposal_generator.pre_nms_topk_train} -> "
+        f"{model.proposal_generator.post_nms_topk_train}; step ms "
+        f"{[round(t, 1) for t in steps]} (the first cold, the second with refine_mist and "
+        f"sampling_on, the last profiled), warm {warm:.1f} ms; peak memory {peak_gb:.2f} GB; "
+        f"launches (A fwd, A bwd, C, D, D bwd) a step {launches[0]}, the MIST step "
+        f"{launches[1]}; losses " + "; ".join(
+            ", ".join(f"{key} {v:.4f}" for key, v in sorted(sc.items())) for sc in all_losses)
+        + f" on {smi}")
+    log("uwsod", f"{name} first step's pools against the plain versions, A fwd bit-identical on "
+        f"the card, A bwd to the plain backward on the CPU: {checked}")
+    log("uwsod", f"{name} profiled step, range host/device ms: "
+        + ", ".join(f"{n} {host[n]:.2f}/{dev[n]:.2f}" for n in UWSOD_RANGES)
+        + f", device outside the ranges {other:.2f}; busy {busy:.2f} of {steps[-1]:.2f} ms "
+        f"({100 * busy / steps[-1]:.1f}%, profiler on) on {smi}")
+    return launches
+
+
+def _uwsod_model(name: str, device, smi: str, cfg) -> tuple:
+    """One UWSOD model at full width with random weights from the seed:
+    ``_uwsod_predict`` on them, then ``_uwsod_train`` (with random weights
+    the recipe's steps drive the present classes' image scores to the 1e-6
+    clamp, after which nothing is detected, so predict runs first). Returns
+    the launches (A fwd, A bwd, C, D, D bwd) of both."""
+    from sos_wsod_torch.engine.synthetic import build_synthetic_uwsod
+    from sos_wsod_torch.models import meta
+
+    model = build_synthetic_uwsod(getattr(meta, name), device, SEED, **UWSOD_KW)
+    per_image = _uwsod_predict(name, model, smi)
+    trained = [sum(x) for x in zip(*_uwsod_train(name, model, cfg, smi))]
+    del model
+    torch.cuda.empty_cache()
+    return tuple(a + UWSOD_PREDICT_IMAGES * b for a, b in zip(trained, per_image))
+
+
+def phase_uwsod(device, smi: str) -> dict:
+    """The UWSOD family (UWSODRCNN, MRRPUWSODRCNN) at full width through
+    their ``loss`` and ``predict`` with the port's SGD (``_uwsod_model``);
+    the MRRP stage's conv forms timed (``_mrrp_conv_times``). Returns the
+    launches of the two models' steps and predicts."""
+    from sos_wsod_torch.engine.synthetic import load_config
+
+    cfg = load_config(str(CONFIG), [])
+    launches = (0,) * 5
+    _set_more_counts(launches)
+    for name in UWSOD_MODELS:
+        t0 = time.perf_counter()
+        got = _uwsod_model(name, device, smi, cfg)
+        launches = tuple(a + b for a, b in zip(launches, got))
+        _set_more_counts(launches)
+        log("uwsod", f"{name}: {time.perf_counter() - t0:.1f} s")
+    _mrrp_conv_times(device, smi)
+    _set_more_counts(launches)
+    return dict(zip(("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd", "roi_align_bwd"),
+                    launches))
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging its wall seconds."""
     t0 = time.perf_counter()
@@ -3000,13 +3324,15 @@ def main() -> int:
     more_launches = timed("16 CSC, WS-ResNet-50, ROIAlignV2", phase_single_view_more, device,
                           smi)
     wsjds_launches = timed("17 WSJDS", phase_wsjds, device, smi)
+    uwsod_launches = timed("18 UWSOD", phase_uwsod, device, smi)
     paths = {"stage-1 inference": infer_launches, "stage-1 training": train_launches,
              "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches,
              "stage-2 training": stage2_train_launches,
              "stage-3 split and training": stage3_train_launches,
              "pipeline and TTA": pipeline_launches, "data parallel": ddp_launches,
              "single-view heads": single_launches,
-             "CSC, WS-ResNet-50, ROIAlignV2": more_launches, "WSJDS": wsjds_launches}
+             "CSC, WS-ResNet-50, ROIAlignV2": more_launches, "WSJDS": wsjds_launches,
+             "UWSOD": uwsod_launches}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd",
                           "roi_align_bwd", "roi_loop_pool_fwd")}

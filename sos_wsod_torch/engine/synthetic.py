@@ -1,7 +1,8 @@
 """Random weights, synthetic test samples, synthetic training dataset dicts
 and a synthetic VOC tree on disk, for runs without a checkpoint or a dataset
 (the GPU smoke run, the inference profile, the CLIs and the tests): the
-stage-1 VGG16 OICR+ model under d2-WSL names, and the stage-2/3 R50-FPN
+stage-1 VGG16 OICR+ model under d2-WSL names (and the UWSOD models on its
+weights, ``build_synthetic_uwsod``), and the stage-2/3 R50-FPN
 Faster R-CNN under detectron2's names, with a checkpoint writer for each, and
 what stage-2 training reads besides the VOC tree: the pseudo-label JSON of
 its splits (``write_pseudo_labels``) and the dataseed file
@@ -230,6 +231,27 @@ def build_synthetic_model(cfg, device, seed: int):
     aspp = {k: tuple(v.shape) for k, v in model.state_dict().items()
             if k.startswith("roi_heads.sem_seg_head.")}
     sd.update((k, torch.from_numpy(v)) for k, v in random_conv_state_dict(aspp, seed).items())
+    return load_weights(model, sd, device)
+
+
+def build_synthetic_uwsod(cls, device, seed: int, **kwargs):
+    """``cls(**kwargs)`` (``UWSODRCNN`` or ``MRRPUWSODRCNN``) with random
+    weights from ``seed`` on ``device``, in eval mode: the VGG16 and the head
+    of ``random_d2_wsl_blobs`` (MRRP's shared plain5 convs take plain5's
+    names and shapes), the RPN head's convs normal(0.01) with zero biases
+    (the JAX RPN head's initializer)."""
+    model = cls(device="meta", **kwargs)
+    head = model.roi_heads
+    dan = [getattr(head.dan, f"fc{i + 1}") for i in range(head.dan.num_fc)]
+    blobs = random_d2_wsl_blobs(seed, head.num_classes, head.refine_k,
+                                [fc.out_features for fc in dan], dan[0].in_features)
+    sd = state_dict_from_d2_wsl(blobs, keep=model.state_dict())
+    rng = np.random.default_rng(seed + 1)
+    for name, t in model.state_dict().items():
+        if name.startswith("proposal_generator.head."):
+            a = (np.zeros(tuple(t.shape), np.float32) if name.endswith(".bias") else
+                 rng.standard_normal(tuple(t.shape), dtype=np.float32) * np.float32(0.01))
+            sd[name] = torch.from_numpy(a)
     return load_weights(model, sd, device)
 
 

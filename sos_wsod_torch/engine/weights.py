@@ -14,7 +14,12 @@ has its fc1 reordered (``dan_channels_last=False``), whatever the width of
 its pooled ROIs (VGG16's 512 channels x 49 cells, WS-ResNet's 2048 x 49).
 A single-view tree with the WS-ResNet backbone (``backbone.stem.conv1``,
 ``backbone.res2_block0.conv1_norm`` ...), the CSC head or any pooler
-converts with no other mapping: the poolers have no weights.
+converts with no other mapping: the poolers have no weights. So do the UWSOD
+trees: the RPN head (``proposal_generator.head.*``) and the MRRP backbone's
+shared plain5 kernels (HWIO -> OIHW, one a conv for all branches) are
+leaves like any other. Their DAN fc1 orders differ: the JAX ``UWSODRCNN``
+pools NCHW, (c, h, w), the JAX ``MRRPUWSODRCNN`` channels-last, (h, w, c);
+each port class names its order (``flax_dan_channels_last``).
 """
 from __future__ import annotations
 

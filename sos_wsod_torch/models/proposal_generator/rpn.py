@@ -17,6 +17,10 @@ low-quality matches, ``batch_size_per_image`` anchors sampled at
 sampled anchors and the L1 (smooth L1 for beta > 0) of the positives'
 deltas, both over ``batch_size_per_image``, times ``loss_weight``. The
 proposals carry no gradient, as the JAX package stops it.
+
+Several levels may share a stride and anchors (the MRRP backbone's branches
+``b0..b2``): each is its own NMS group, and ``return_levels`` also gives
+each kept proposal's level, so that the caller pools it from its own map.
 """
 from __future__ import annotations
 
@@ -67,9 +71,12 @@ def _top_k(x: torch.Tensor, k: int):
 
 def find_top_rpn_proposals(level_logits: List[torch.Tensor], level_boxes: List[torch.Tensor],
                            image_hw: torch.Tensor, *, pre_nms_topk: int, post_nms_topk: int,
-                           nms_thresh: float = 0.7, min_size: float = 0.0):
+                           nms_thresh: float = 0.7, min_size: float = 0.0,
+                           return_levels: bool = False):
     """Per level (HWA,) logits and (HWA, 4) decoded boxes, image_hw (2,) ->
-    (boxes (post, 4), logits (post,), valid (post,))."""
+    (boxes (post, 4), logits (post,), valid (post,)), and with
+    ``return_levels`` each slot's int32 level too (an invalid slot's is the
+    level of the candidate the top-k put there, as in the JAX package)."""
     cand_scores, cand_boxes, cand_lvl = [], [], []
     h = image_hw[0].float()
     w = image_hw[1].float()
@@ -93,8 +100,9 @@ def find_top_rpn_proposals(level_logits: List[torch.Tensor], level_boxes: List[t
     top_scores, top_idx = _top_k(sel, post_nms_topk)
     out_valid = torch.isfinite(top_scores)
     zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
-    return (torch.where(out_valid[:, None], boxes[top_idx], zero),
-            torch.where(out_valid, top_scores, zero), out_valid)
+    out = (torch.where(out_valid[:, None], boxes[top_idx], zero),
+           torch.where(out_valid, top_scores, zero), out_valid)
+    return out + (lvls[top_idx],) if return_levels else out
 
 
 def label_and_sample_anchors(anchors: torch.Tensor, gt_boxes: torch.Tensor,
@@ -183,11 +191,12 @@ class RPN(nn.Module):
         return self._anchors[key]
 
     def proposals(self, features: Dict[str, torch.Tensor], image_hw: torch.Tensor, *,
-                  train: bool = False):
+                  train: bool = False, return_levels: bool = False):
         """Per level NCHW (1, C, H, W) features of one image, image_hw (2,)
-        -> ((boxes (post, 4), logits (post,), valid (post,)), (objectness
-        logits (N,), deltas (N, 4), anchors (N, 4)) of all levels), with the
-        train or the test top-k. The proposals are detached."""
+        -> ((boxes (post, 4), logits (post,), valid (post,)[, levels
+        (post,)]), (objectness logits (N,), deltas (N, 4), anchors (N, 4))
+        of all levels), with the train or the test top-k. The proposals are
+        detached."""
         feats = [features[f] for f in self.in_features]
         logits_l, deltas_l = self.head(feats)
         flat = [_flatten_level(lg, dl) for lg, dl in zip(logits_l, deltas_l)]
@@ -198,7 +207,7 @@ class RPN(nn.Module):
             [lg.detach() for lg, _ in flat], boxes_l, image_hw,
             pre_nms_topk=self.pre_nms_topk_train if train else self.pre_nms_topk_test,
             post_nms_topk=self.post_nms_topk_train if train else self.post_nms_topk_test,
-            nms_thresh=self.nms_thresh, min_size=self.min_size)
+            nms_thresh=self.nms_thresh, min_size=self.min_size, return_levels=return_levels)
         return props, (torch.cat([lg for lg, _ in flat]), torch.cat([d for _, d in flat]),
                        torch.cat(anchors_l))
 

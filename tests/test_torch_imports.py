@@ -207,6 +207,25 @@ assert x_crf.shape == w_crf.shape == (2, 24, 32) and bool(torch.isfinite(x_crf).
 assert build.build_host("dense_crf").parent == build.BUILD_DIR
 assert build.NATIVE_DIR.parent.name == "sos_wsod_torch"
 
+# the UWSOD family (chip_smoke's phase 18): a step of each model through its
+# loss, then predict, from the seeded weights at a small size
+assert {"sos_wsod_torch.models.backbones.mrrp", "sos_wsod_torch.models.heads.uwsod",
+        "sos_wsod_torch.models.meta.rcnn_uwsod"} <= set(names)
+from sos_wsod_torch.engine.synthetic import build_synthetic_uwsod
+from sos_wsod_torch.models.meta import MRRPUWSODRCNN, UWSODRCNN
+hw = torch.tensor([40, 48], dtype=torch.int32)
+uw_batch = {"image": torch.rand(40, 48, 3) * 255, "valid_hw": hw, "image_hw": hw,
+            "gt_classes_oh": torch.tensor([1.0, 0.0, 1.0])}
+for cls in (UWSODRCNN, MRRPUWSODRCNN):
+    uw = build_synthetic_uwsod(cls, "cpu", 0, num_classes=3, refine_k=2,
+                               refine_reg=(True, True), dan_dims=(16, 16), pre_nms_topk=32,
+                               post_nms_topk=16)
+    uw_losses = uw.train().loss(uw_batch, torch.Generator().manual_seed(0))
+    sum(uw_losses.values()).backward()
+    assert {"loss_rpn_cls", "loss_box_reg_r1"} <= set(uw_losses), sorted(uw_losses)
+    with torch.no_grad():
+        assert uw.eval().predict(uw_batch)[1].shape == (16, 4)
+
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu", "sklearn")
              and sys.modules[m] is not None)
@@ -229,7 +248,8 @@ def test_port_and_chip_smoke_import_without_jax():
     dump of train, val and test, PGF and the multi-label tool, the _wsl
     loader on their output, and the stage-1 TTA CLI; and a step of each
     single-view head through the stage-1 CLI (WSJDS's --eval-only too),
-    with scikit-learn blocked too; and WSJDS's host CRF round trip."""
+    with scikit-learn blocked too; and WSJDS's host CRF round trip; and a
+    step and a predict of each UWSOD model."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
