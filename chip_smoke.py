@@ -42,7 +42,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
      (the gradient of each level's features) against the plain backward
      run on the CPU, at the training step's shapes (512 sampled ROIs on
      p2-p5 of the 704 x 960 canvas and of the largest training canvas, 1216
-     x 1664) in bf16 and f32, and on the forward's adversarial cases:
+     x 1664) in bf16 and f32, on the forward's adversarial cases, and at
+     the mask head's 14 x 14 bins (512 ROIs, 704 x 960, both dtypes):
      bit-identical, and the same bits from two launches; times as called
      and on the device beside the bound, the bin-tile pairs, the plain
      backward's time on the card and index_add_'s alone for the same terms;
@@ -238,7 +239,36 @@ Phases, one line each; any failure raises and the script exits non-zero:
      gradient bit-identical to the plain backward run on the CPU; the warm
      step, peak memory, the ranges and busy share of the profiled step; then
      the MRRP stage's forward and forward + backward by conv form (cuDNN's
-     dilated conv in channels_last, in NCHW, and on the d x d sub-grids).
+     dilated conv in channels_last, in NCHW, and on the d x d sub-grids);
+ 19. the modules no JAX entry point reaches, driven directly at full width
+     (engine/synthetic.py:synthetic_mask_sample: a 688 x 917 image of noise
+     on the 704 x 960 canvas, 4 gt boxes with a filled ellipse each as its
+     instance mask): (a) CascadeROIHeads (3 stages, 2 x 1024 fc) and
+     MaskROIHeads (4 x 256 convs, pooler 14) on the stage-2 R50-FPN and RPN
+     of voc_baseline.yaml (random weights from the seed, bf16), on the
+     RPN's proposals and 64 jittered copies of each gt box, so that the
+     foreground quota (128 of 512) fills: two SGD steps of the cascade's
+     losses plus the mask loss over a box branch's 512 samples (D fwd 5, D
+     bwd 4, C once a step), then predict_scores_boxes and the top 100
+     detections' masks (D fwd 4, C once); the first step's losses, the
+     gradients of p2-p5 and of both heads' parameters, and the predictions
+     equal the all-plain path's bit for bit (its ROIAlign backward run on
+     the CPU; cuDNN deterministic for the gradients); (b)
+     DeformBottleneckBlock v1 and v2 at WS-ResNet-50's res5 (2048 -> 512 ->
+     2048, dilation 2, 88 x 120, f32, offsets of a few pixels, FrozenBN
+     statistics near the identity): forward and every gradient on the card
+     within the CPU test's tolerance of the CPU's, which samples at the
+     card's offsets and whose ReLUs take the card's side of 0 where the two
+     lie within 1e-5 of the largest input on either side (counted); times and
+     peak memory; deform_conv2d at zero offsets against cuDNN's conv, within
+     1e-4, both timed; (c) roi_label at 4096 ROIs x 20 classes on the card
+     equal to the CPU with one permutation; (d) the rotated IoU at 1000 x
+     1000 within 1e-5 of the CPU (and how many pairs are not bit-identical),
+     and rotated NMS at 2000 boxes through
+     kernel C's sweep alone, keeping what the plain fixpoint keeps over the
+     same IoU matrix; (e) LossEvalHook over 2 validation batches of 2 images
+     of the stage-2 detector: its val_total_loss_student equal to the mean
+     of the model's own "val_loss" totals (D fwd and C once an image).
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the stage-1 inference throughput.
@@ -374,6 +404,25 @@ UWSOD_STEPS = 3
 UWSOD_PREDICT_IMAGES = 2
 UWSOD_RANGES = ("backbone", "rpn", "roi_pool", "box_head", "mining", "losses", "backward",
                 "optimizer")
+# phase 19: the modules no JAX entry point reaches, at full width: the
+# stage-2 detector's widths (overrides: none on the card), the mask head's
+# 4 x 256 convs at pooler 14, 4 gt boxes in 8 slots, the top 100 detections'
+# masks; the deform block at res5 (dilation 2), its offset conv's gain and
+# how near 0 a ReLU's input may fall on either side on the two devices;
+# roi_label's ROIs and classes; the rotated IoU's and NMS's box counts; the
+# validation batches and their images
+ITEM7_STAGE2_OPTS = []
+ITEM7_CANVAS, ITEM7_IMAGE_HW = UWSOD_CANVAS, UWSOD_IMAGE_HW
+ITEM7_GT = (4, 8)
+ITEM7_JITTER = (64, 0.08)   # proposals a gt box, and their corners' spread in units of its sides
+ITEM7_MASK_HEAD = {"pooler_resolution": 14, "num_conv": 4, "conv_dim": 256}
+ITEM7_DETECTIONS = 100
+ITEM7_DEFORM_HWC = WS_RESNET_HWC
+ITEM7_OFFSET_GAIN = 4.0
+ITEM7_KINK = 1e-5   # a ReLU input's two devices may straddle 0 within this of the layer's largest
+ITEM7_ROI_LABEL = (4096, 20)
+ITEM7_ROTATED = (1000, 2000)
+ITEM7_VAL = (2, 2)
 
 
 def log(phase: str, msg: str) -> None:
@@ -527,24 +576,34 @@ def _reset_nms_launches() -> None:
 
 
 @contextlib.contextmanager
-def _plain_versions(roi_align: bool = False, roi_pool: bool = False):
+def _plain_versions(roi_align: bool = False, roi_pool: bool = False,
+                    roi_align_bwd: bool = False):
     """Route the card's NMS (and, with ``roi_align`` or ``roi_pool``, its
-    ROIAlign or ROIPool and ROILoopPool forwards) through the plain
-    versions, for a comparison with the kernels; never on a path whose
-    launches are counted."""
+    ROIAlign or ROIPool and ROILoopPool forwards; with ``roi_align_bwd`` the
+    ROIAlign backward, run on the CPU, where the plain backward adds in its
+    fixed order) through the plain versions, for a comparison with the
+    kernels; never on a path whose launches are counted."""
     from sos_wsod_torch.ops import nms as nms_ops
     from sos_wsod_torch.ops import roi_align as align_ops
     from sos_wsod_torch.ops import roi_loop_pool as loop_ops
     from sos_wsod_torch.ops import roi_pool as pool_ops
 
     saved = (nms_ops.nms_keep_sorted_cuda, align_ops.roi_align_fwd_cuda,
-             pool_ops.roi_pool_fwd_cuda, loop_ops.roi_loop_pool_fwd_cuda)
+             pool_ops.roi_pool_fwd_cuda, loop_ops.roi_loop_pool_fwd_cuda,
+             align_ops.roi_align_bwd_cuda)
     nms_ops.nms_keep_sorted_cuda = nms_ops.greedy_keep_sorted_reference
     if roi_align:
         def plain_align(features, boxes, valid, level, scales, **kw):
             out = align_ops.roi_align_levels_reference(features, boxes, valid, level, scales, **kw)
             return out.permute(0, 2, 3, 1)
         align_ops.roi_align_fwd_cuda = plain_align
+    if roi_align_bwd:
+        def plain_align_bwd(grad, shapes, boxes, valid, level, scales, **kw):
+            cpu = align_ops.roi_align_levels_backward_reference(
+                grad.permute(0, 3, 1, 2).cpu(), shapes, boxes.cpu(), valid.cpu(), level.cpu(),
+                scales, output_size=tuple(grad.shape[1:3]), **kw)
+            return [g.to(grad.device) for g in cpu]
+        align_ops.roi_align_bwd_cuda = plain_align_bwd
     if roi_pool:
         def plain_pool(feat, hs, he, ws, we, valid, row_scale, return_argmax=True):
             out, pos = pool_ops.roi_pool_reference(feat, hs, he, ws, we, valid, row_scale)
@@ -560,7 +619,8 @@ def _plain_versions(roi_align: bool = False, roi_pool: bool = False):
         yield
     finally:
         (nms_ops.nms_keep_sorted_cuda, align_ops.roi_align_fwd_cuda,
-         pool_ops.roi_pool_fwd_cuda, loop_ops.roi_loop_pool_fwd_cuda) = saved
+         pool_ops.roi_pool_fwd_cuda, loop_ops.roi_loop_pool_fwd_cuda,
+         align_ops.roi_align_bwd_cuda) = saved
 
 
 def phase_nms_vs_plain(device) -> dict:
@@ -637,9 +697,10 @@ def phase_roi_align_vs_plain(device) -> dict:
 
 def phase_roi_align_bwd_vs_plain(device) -> dict:
     """The ROIAlign backward kernel at the training shapes, both canvases and
-    dtypes, then the adversarial cases: each bit-identical to the plain
-    backward run on the CPU and across two launches, within
-    ADVERSARIAL_LIMIT_S a case; times beside the bound."""
+    dtypes, then the adversarial cases and the mask head's 14 x 14 bins:
+    each bit-identical to the plain backward run on the CPU and across two
+    launches, within ADVERSARIAL_LIMIT_S an adversarial case; times beside
+    the bound."""
     from sos_wsod_torch.tools import bench_roi_align as bench
 
     res = bench.run_bwd(device, iters=20, seed=SEED)
@@ -663,6 +724,14 @@ def phase_roi_align_bwd_vs_plain(device) -> dict:
                                      f"{ADVERSARIAL_LIMIT_S} s")
             log("kernel", f"roi_align_bwd {str(dtype)[6:]} {name}: bit-identical to the plain "
                           f"backward on the CPU and across two launches in {secs:.2f} s")
+        # the mask head's 14 x 14 bins (196 a ROI, one ROI a pass of the walk)
+        t0 = time.perf_counter()
+        bench.check_bwd(*bench.bwd_inputs(device, dtype, SEED, output_size=(14, 14)))
+        torch.cuda.synchronize()
+        log("kernel", f"roi_align_bwd {str(dtype)[6:]} {bench.TRAIN_ROIS} ROIs x 14 x 14 bins "
+                      f"(the mask head's pooler) at {bench.CANVAS[0]}x{bench.CANVAS[1]}: "
+                      f"bit-identical to the plain backward on the CPU and across two launches "
+                      f"in {time.perf_counter() - t0:.2f} s")
     r = res[f"{bench.CANVAS[0]}x{bench.CANVAS[1]} bfloat16"]
     return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -3290,6 +3359,512 @@ def phase_uwsod(device, smi: str) -> dict:
                     launches))
 
 
+def _item7_counts() -> dict:
+    """Launches of D fwd, D bwd and C's two kernels since they were last
+    set to 0 (rotated NMS launches C's sweep alone)."""
+    from sos_wsod_torch.kernels import nms, roi_align as align, roi_align_bwd as align_bwd
+
+    return {"roi_align_fwd": align.launches, "roi_align_bwd": align_bwd.launches,
+            "nms_mask": nms.mask_launches, "nms_sweep": nms.sweep_launches}
+
+
+def _check_launches(name: str, got: dict, want: dict) -> dict:
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+    return got
+
+
+def _close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float) -> float:
+    """``got`` within rtol + rtol x max |want| of ``want``; returns the
+    largest difference."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    err = float((got - want).abs().max())
+    atol = rtol * float(want.abs().max())
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: differs by up to {err:.3g} (rtol {rtol}, atol {atol:.3g})")
+    return err
+
+
+def _jittered_gt(sample: dict, per_gt: int, spread: float, seed: int) -> np.ndarray:
+    """``per_gt`` copies of each gt box of ``sample`` with every corner moved
+    by a normal draw of ``spread`` times the box's side, clipped to the
+    image: proposals that mostly overlap their box at IoU 0.5-0.95, so
+    that the ROI sampler's foreground quota fills as in a trained
+    detector's batch."""
+    rng = np.random.default_rng(seed)
+    gt = sample["gt_boxes"][sample["gt_valid"]]
+    side = np.tile(gt[:, 2:] - gt[:, :2], 2)[:, None]
+    boxes = gt[:, None] + rng.normal(0, spread, (len(gt), per_gt, 4)) * side
+    h, w = sample["image_hw"]
+    return np.clip(boxes.reshape(-1, 4), 0, [w, h, w, h]).astype(np.float32)
+
+
+def _item7_heads(device, smi: str) -> dict:
+    """Phase 19 (a): CascadeROIHeads and MaskROIHeads on the stage-2
+    detector, one synthetic image with instance masks, the RPN's proposals
+    and jittered copies of the gt boxes (``_jittered_gt``). The first
+    step's losses, the gradients of the pooled maps and of both heads'
+    parameters with the kernels bit-identical to the plain path's (ROIAlign
+    forward plain on the card, its backward plain on the CPU, cuDNN held to
+    its deterministic algorithms in both)."""
+    from sos_wsod_torch.core.matcher import Matcher
+    from sos_wsod_torch.engine.synthetic import (
+        build_synthetic_frcnn, load_config, synthetic_mask_sample)
+    from sos_wsod_torch.models.roi_heads.mask_cascade import CascadeROIHeads, MaskROIHeads
+    from sos_wsod_torch.models.roi_heads.standard import (
+        FPN_STRIDES, add_ground_truth_to_proposals, label_and_sample_proposals)
+
+    cfg = load_config(str(STAGE2_CONFIG), ITEM7_STAGE2_OPTS)
+    roi, box = cfg.MODEL.ROI_HEADS, cfg.MODEL.ROI_BOX_HEAD
+    model = build_synthetic_frcnn(cfg, device, SEED).train()
+    torch.manual_seed(SEED)
+    kw = dict(in_features=tuple(roi.IN_FEATURES),
+              strides=tuple(FPN_STRIDES[f] for f in roi.IN_FEATURES),
+              in_channels=cfg.MODEL.FPN.OUT_CHANNELS, num_classes=roi.NUM_CLASSES, device=device)
+    cascade = CascadeROIHeads(batch_size_per_image=roi.BATCH_SIZE_PER_IMAGE,
+                              positive_fraction=roi.POSITIVE_FRACTION,
+                              pooler_resolution=box.POOLER_RESOLUTION, num_fc=box.NUM_FC,
+                              fc_dim=box.FC_DIM, **kw)
+    mask = MaskROIHeads(**ITEM7_MASK_HEAD, **kw)
+    matcher = Matcher(list(roi.IOU_THRESHOLDS), list(roi.IOU_LABELS))
+    sample = synthetic_mask_sample(ITEM7_CANVAS, ITEM7_IMAGE_HW, *ITEM7_GT, roi.NUM_CLASSES, SEED)
+    t = {k: torch.as_tensor(v, device=device) for k, v in sample.items()}
+    jit = torch.as_tensor(_jittered_gt(sample, *ITEM7_JITTER, SEED), device=device)
+    gt = (t["gt_boxes"], t["gt_classes"], t["gt_valid"])
+    autocast = torch.autocast("cuda", dtype=torch.bfloat16,
+                              enabled=model.compute_dtype == torch.bfloat16)
+
+    def features():
+        feats = model._features(t["image"])
+        return feats, {k: v[0].permute(1, 2, 0) for k, v in feats.items()}
+
+    def losses(seed, retain=False):
+        generator = torch.Generator(device=device).manual_seed(seed)
+        with autocast:
+            feats, hwc = features()
+            if retain:
+                for k in roi.IN_FEATURES:
+                    hwc[k].retain_grad()
+            (pb, pl, pv), _ = model.proposal_generator.proposals(feats, t["image_hw"], train=True)
+            pb, pl = torch.cat([pb, jit]), torch.cat([pl, pl.new_zeros(len(jit))])
+            pv = torch.cat([pv, pv.new_ones(len(jit))])
+            out = cascade.losses(hwc, pb, pl, pv, *gt, generator, t["image_hw"])
+            # the mask branch over a box branch's samples (StandardROIHeads' draws)
+            ab, _, av = add_ground_truth_to_proposals(pb, pl, pv, gt[0], gt[2])
+            sb, scls, smatch, sv, fg, _ = label_and_sample_proposals(
+                ab, av, *gt, matcher, generator, batch_size_per_image=roi.BATCH_SIZE_PER_IMAGE,
+                positive_fraction=roi.POSITIVE_FRACTION, num_classes=roi.NUM_CLASSES)
+            out.update(mask.losses(hwc, sb, sv, scls, fg, t["gt_masks"], smatch))
+        return out, int(fg.sum()), hwc
+
+    def first_step():
+        """The first step's losses and gradients (pooled maps, then the
+        cascade's and the mask head's parameters), left out of the weights."""
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            got, _, hwc = losses(SEED, retain=True)
+            sum(v.float() for v in got.values()).backward()
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        grads = [hwc[k].grad for k in roi.IN_FEATURES]
+        grads += [p.grad for m in (cascade, mask) for p in m.parameters()]
+        opt.zero_grad(set_to_none=True)
+        return {k: v.detach() for k, v in got.items()}, grads
+
+    def predict():
+        with torch.inference_mode(), autocast:
+            feats, hwc = features()
+            (pb, _, pv), _ = model.proposal_generator.proposals(feats, t["image_hw"])
+            scores, boxes = cascade.predict_scores_boxes(hwc, pb, pv, t["image_hw"])
+            best = torch.where(pv, scores[:, :-1].max(1).values, float("-inf"))
+            top = torch.topk(best, ITEM7_DETECTIONS).indices
+            masks = mask.predict(hwc, boxes[top], pv[top], scores[top, :-1].argmax(1))
+        return scores, boxes, masks
+
+    params = [p for m in (model, cascade, mask) for p in m.parameters() if p.requires_grad]
+    opt = torch.optim.SGD(params, lr=0.02, momentum=0.9)
+    with _plain_versions(roi_align=True, roi_align_bwd=True):
+        want, want_grads = first_step()
+    check, check_grads = first_step()
+    if not all(torch.equal(check[k], want[k]) for k in check):
+        raise AssertionError(f"losses with the kernels {check} != the plain path's {want}")
+    if any(a is None or b is None or not torch.equal(a, b)
+           for a, b in zip(check_grads, want_grads)):
+        raise AssertionError("the first step's gradients of the pooled maps or of the heads' "
+                             "parameters with the kernels differ from the plain path's")
+    levels = len(roi.IN_FEATURES)
+    n_grads, n_nonzero = len(want_grads), [int(g.count_nonzero()) for g in want_grads[:levels]]
+    del check_grads, want_grads
+    _reset_align_nms_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for step in range(2):
+        t0 = time.perf_counter()
+        got, n_fg, _ = losses(SEED + step)
+        total = sum(v.float() for v in got.values())
+        total.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if step == 0:
+            first, first_fg = {k: v.detach() for k, v in got.items()}, n_fg
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    pred = predict()
+    torch.cuda.synchronize()
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    launches = _check_launches("phase 19 (a)", _item7_counts(), {
+        "roi_align_fwd": 2 * 5 + 4, "roi_align_bwd": 2 * 4, "nms_mask": 3, "nms_sweep": 3})
+    with _plain_versions(roi_align=True):
+        plain_pred = predict()
+    keys = {f"{n}_stage{k}" for n in ("loss_cls", "loss_box_reg") for k in range(3)}
+    if set(first) != keys | {"loss_mask"} or not all(torch.isfinite(v) for v in first.values()):
+        raise AssertionError(f"cascade + mask losses: {first}")
+    if not all(torch.equal(first[k], want[k]) for k in first):
+        raise AssertionError(f"losses of the SGD step {first} != the plain path's {want}")
+    if first_fg < roi.BATCH_SIZE_PER_IMAGE * roi.POSITIVE_FRACTION:
+        raise AssertionError(f"{first_fg} foreground samples: the quota is not filled")
+    if not all(torch.equal(a, b) for a, b in zip(pred, plain_pred)):
+        raise AssertionError("cascade scores, boxes or masks with the kernels differ from the "
+                             "plain path's")
+    scores, boxes, masks = pred
+    if not (torch.isfinite(scores).all() and torch.isfinite(boxes).all()
+            and bool(((masks >= 0) & (masks <= 1)).all())):
+        raise AssertionError("non-finite cascade predictions or masks outside [0, 1]")
+    mh = ITEM7_MASK_HEAD
+    log("item7", f"(a) CascadeROIHeads (3 stages, IoU 0.5/0.6/0.7, {box.NUM_FC} x {box.FC_DIM} "
+                 f"fc) + MaskROIHeads ({mh['num_conv']} x {mh['conv_dim']} convs, pooler "
+                 f"{mh['pooler_resolution']} -> {2 * mh['pooler_resolution']} masks) on the "
+                 f"R50-FPN, {ITEM7_IMAGE_HW} image on {ITEM7_CANVAS}, {ITEM7_GT[0]} gt with "
+                 f"ellipse masks, the RPN's proposals + {len(jit)} jittered gt copies, "
+                 f"{roi.BATCH_SIZE_PER_IMAGE} ROIs ({first_fg} fg): losses " +
+                 ", ".join(f"{k} {float(v):.4f}" for k, v in sorted(first.items())) +
+                 f" == the plain path's; the first step's {n_grads} gradients (the pooled maps' "
+                 f"nonzero entries {n_nonzero}, both heads' parameters) == the plain path's bit "
+                 f"for bit; "
+                 f"SGD step ({model.compute_dtype}) " +
+                 " / ".join(f"{ms:.1f}" for ms in step_ms) + f" ms (cold / warm), peak "
+                 f"{peak:.2f} GB; predict_scores_boxes + MaskROIHeads.predict of "
+                 f"{ITEM7_DETECTIONS} detections {pred_ms:.1f} ms, == the plain path's; "
+                 f"launches {launches} on {smi}")
+    del model, cascade, mask, opt, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _item7_deform_weights(blk, x: torch.Tensor, g: torch.Generator) -> None:
+    """The block's weights for the card-against-CPU check: FrozenBN
+    statistics near the identity (the residual branch's last scaled to
+    about 0.3), and offsets of a few pixels (the offset conv at random,
+    scaled to its input's spread, its bias cancelling the input's mean)."""
+    with torch.no_grad():
+        for name, scale in (("conv1_norm", 1.0), ("conv2_norm", 1.0), ("conv3_norm", 0.3)):
+            bn = getattr(blk, name)
+            bn.weight.uniform_(0.8 * scale, 1.2 * scale, generator=g)
+            bn.bias.normal_(0, 0.1, generator=g)
+            bn.running_mean.normal_(0, 0.1, generator=g)
+            bn.running_var.uniform_(0.5, 2.0, generator=g)
+        inp = F.relu(blk.conv1_norm(blk.conv1(x)))
+        w = blk.conv2_offset.weight
+        w.normal_(0, ITEM7_OFFSET_GAIN / (w[0].numel() ** 0.5 * float(inp.std())), generator=g)
+        blk.conv2_offset.bias.copy_(-(w.sum((2, 3)) @ inp.mean((0, 2, 3))))
+
+
+_PRE_RELU = ("conv1_norm", "conv2_norm", "conv3_norm")   # the third ReLU's input adds x
+
+
+def _record_pre_relu(blk, x: torch.Tensor, seen: dict) -> list:
+    """Hooks that keep the input of each of the block's three ReLUs."""
+    def hook(name):
+        return lambda m, i, o: seen.__setitem__(
+            name, (o + x if name == "conv3_norm" else o).detach())
+    return [getattr(blk, n).register_forward_hook(hook(n)) for n in _PRE_RELU]
+
+
+def _take_gates(blk, x: torch.Tensor, card: dict, counts: dict) -> list:
+    """Hooks that give the CPU block's ReLUs the card's gates. Where the two
+    devices' inputs to a ReLU lie on either side of 0, which the check
+    allows only within ITEM7_KINK of the layer's largest |input| on both,
+    the CPU's input takes the card's side (its size kept, so within that
+    of 0), and both take the same branch of the kink. counts[name] = (the
+    elements that switched, the elements within ITEM7_KINK of 0 on either
+    device)."""
+    def hook(name):
+        def fn(m, i, o):
+            pre = o + x.detach() if name == "conv3_norm" else o
+            on = card[name] > 0
+            eps = ITEM7_KINK * float(card[name].abs().max())
+            switch = (pre > 0) != on
+            if bool((switch & ((pre.abs() > eps) | (card[name].abs() > eps))).any()):
+                raise AssertionError(f"{name}: a ReLU input on the card and on the CPU on either "
+                                     f"side of 0 and more than {eps:.3g} from it")
+            counts[name] = (int(switch.sum()),
+                            int(((pre.abs() <= eps) | (card[name].abs() <= eps)).sum()))
+            side = torch.where(on, pre.abs().clamp_min(torch.finfo(pre.dtype).tiny), -pre.abs())
+            return o + (torch.where(switch, side, pre) - pre).detach()
+        return fn
+    return [getattr(blk, n).register_forward_hook(hook(n)) for n in _PRE_RELU]
+
+
+def _item7_deform(device, smi: str) -> None:
+    """Phase 19 (b): DeformBottleneckBlock at WS-ResNet-50's res5 width, both
+    variants, on the card against the CPU; deform_conv2d at zero offsets
+    against cuDNN's conv."""
+    import copy
+
+    from sos_wsod_torch.models.backbones.resnet_ws import DeformBottleneckBlock
+    from sos_wsod_torch.ops.deform_conv import deform_conv2d
+
+    h, w, c = ITEM7_DEFORM_HWC
+    bott, dil = c // 4, 2
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn(1, c, h, w, generator=g)
+    gout = torch.randn(1, c, h, w, generator=g)
+    for modulated in (False, True):
+        torch.manual_seed(SEED)
+        blk = DeformBottleneckBlock(c, c, bott, dilation=dil, deform_modulated=modulated)
+        assert not blk.has_shortcut   # the third ReLU's input is conv3_norm's output + x
+        _item7_deform_weights(blk, x, g)
+        card = copy.deepcopy(blk).to(device)
+        seen = {}
+        hooks = [card.conv2_offset.register_forward_hook(
+            lambda m, i, o: seen.__setitem__("off", o.detach()))]
+        xd = x.to(device, copy=True).requires_grad_()
+        hooks += _record_pre_relu(card, xd, seen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out_d = card(xd)
+        (out_d * gout.to(device)).sum().backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for hk in hooks:
+            hk.remove()
+        # the CPU reference samples at the card's offsets (as values; their
+        # gradient path stays): the bilinear's derivative jumps where a sample
+        # crosses a cell edge, which two devices' f32 offsets may straddle;
+        # its ReLUs take the card's gates (_take_gates) for the same reason
+        off_d = seen["off"].cpu()
+        blk.conv2_offset.register_forward_hook(lambda m, i, o: o + (off_d - o).detach())
+        xc = x.clone().requires_grad_()   # x takes no gradient: a leaf
+        kinks = {}
+        _take_gates(blk, xc, {k: seen[k].cpu() for k in _PRE_RELU}, kinks)
+        out_c = blk(xc)
+        (out_c * gout).sum().backward()
+        errs = [_close("forward", out_d, out_c, 1e-5), _close("input gradient", xd.grad, xc.grad,
+                                                             1e-4)]
+        for (name, pd), (_, pc) in zip(card.named_parameters(), blk.named_parameters()):
+            errs.append(_close(f"{name} gradient", pd.grad, pc.grad, 1e-4))
+        shift = float(off_d[:, :18].abs().median())   # the border's zero padding shifts more
+        if not 0.3 < shift < 10:
+            raise AssertionError(f"median |offset| {shift:.3f} px: not a few pixels")
+        live = [float((seen[k] > 0).float().mean()) for k in _PRE_RELU]
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: card(xd), 5)
+
+        def fwd_bwd():
+            card.zero_grad(set_to_none=True)
+            (card(xd) * gout.to(device)).sum().backward()
+        both = cuda_ms(fwd_bwd, 3)
+        log("item7", f"(b) DeformBottleneckBlock {'v2 (modulated)' if modulated else 'v1'} "
+                     f"{c} -> {bott} -> {c}, dilation {dil}, on {(h, w)} f32: median |offset| "
+                     f"{shift:.2f} px; the three ReLUs' inputs > 0 on the card " +
+                     " / ".join(f"{100 * v:.1f}%" for v in live) + f", within {ITEM7_KINK} x "
+                     f"the largest of 0 on either device (of them switched to the card's side) " +
+                     ", ".join(f"{k} {n} ({m})" for k, (m, n) in kinks.items()) +
+                     f"; forward and every gradient within the CPU test's "
+                     f"tolerance of the CPU (largest differences forward {errs[0]:.3g}, input "
+                     f"gradient {errs[1]:.3g}, parameters {max(errs[2:]):.3g}); forward "
+                     f"{fwd:.3f} ms, forward + backward {both:.3f} ms, peak {peak:.2f} GB on "
+                     f"{smi}")
+        del card, xd, out_d
+    xin = torch.randn(1, bott, h, w, device=device)
+    wt = torch.randn(bott, bott, 3, 3, device=device) / (9 * bott) ** 0.5
+    off0 = torch.zeros(1, 18, h, w, device=device)
+    got = deform_conv2d(xin, off0, wt, stride=1, padding=dil, dilation=dil)
+    ref = F.conv2d(xin, wt, padding=dil, dilation=dil)
+    err = _close("deform_conv2d at zero offsets vs F.conv2d", got, ref, 1e-4)
+    d_ms = cuda_ms(lambda: deform_conv2d(xin, off0, wt, stride=1, padding=dil, dilation=dil), 5)
+    c_ms = cuda_ms(lambda: F.conv2d(xin, wt, padding=dil, dilation=dil), 5)
+    log("item7", f"(b) deform_conv2d at zero offsets ({bott} -> {bott}, 3 x 3, dilation {dil}, "
+                 f"{(h, w)} f32) {d_ms:.3f} ms vs cuDNN's F.conv2d {c_ms:.3f} ms "
+                 f"({d_ms / c_ms:.1f}x); outputs within 1e-4 (largest difference {err:.3g}) on "
+                 f"{smi}")
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _fixed_permutation(perm: torch.Tensor):
+    from sos_wsod_torch.core import sampling
+
+    saved = sampling.permutation
+    sampling.permutation = lambda n, generator, device: perm.to(device)
+    try:
+        yield
+    finally:
+        sampling.permutation = saved
+
+
+def _item7_roi_label(device, smi: str) -> None:
+    """Phase 19 (c): roi_label at ITEM7_ROI_LABEL ROIs and classes, on the
+    card and on the CPU with one permutation."""
+    from sos_wsod_torch.core.boxes import pairwise_iou
+    from sos_wsod_torch.ops.roi_label import roi_label
+
+    r, c = ITEM7_ROI_LABEL
+    rng = np.random.default_rng(SEED)
+    xy = rng.uniform(0, 800, (r, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(20, 300, (r, 2))], 1)
+                             .astype(np.float32))
+    cpu = {"scores": torch.from_numpy(rng.uniform(0, 1, (r, c + 1)).astype(np.float32)),
+           "iou": pairwise_iou(boxes, boxes),
+           "labels": torch.from_numpy((rng.uniform(0, 1, c) < 0.15).astype(np.float32)),
+           "valid": torch.arange(r) < r - 96}
+    cpu["labels"][int(rng.integers(c))] = 1.0
+    card = {k: v.to(device) for k, v in cpu.items()}
+    perm = torch.randperm(r, generator=torch.Generator().manual_seed(SEED))
+    with _fixed_permutation(perm):
+        want = roi_label(*cpu.values(), torch.Generator())
+        got = roi_label(*card.values(), torch.Generator(device=device))
+        ms = cuda_ms(lambda: roi_label(*card.values(), None), 5)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+        raise AssertionError("roi_label on the card differs from the CPU")
+    log("item7", f"(c) roi_label at {r} ROIs x {c} classes ({int(cpu['labels'].sum())} present): "
+                 f"RL and RW on the card == the CPU's ({int((want[1] > 0).sum())} weighted, "
+                 f"{int((want[0] == c).sum())} background); {ms:.3f} ms on {smi}")
+
+
+def _rotated_boxes(rng, n: int, span: float) -> np.ndarray:
+    """n random-angle boxes, a third of them jittered copies of others."""
+    b = np.concatenate([rng.uniform(0, span, (n, 2)), rng.uniform(10, 80, (n, 2)),
+                        rng.uniform(-180, 180, (n, 1))], 1)
+    k = n // 3
+    b[:k] = b[k:2 * k] + rng.normal(0, [2, 2, 2, 2, 5], (k, 5))
+    return b.astype(np.float32)
+
+
+def _item7_rotated(device, smi: str) -> dict:
+    """Phase 19 (d): the rotated IoU on the card against the CPU, and rotated
+    NMS through kernel C's sweep against the plain fixpoint."""
+    from sos_wsod_torch.ops.nms import greedy_keep_from_suppression
+    from sos_wsod_torch.ops.rotated import nms_rotated_mask, pairwise_iou_rotated
+
+    n_iou, n_nms = ITEM7_ROTATED
+    rng = np.random.default_rng(SEED)
+    b = torch.from_numpy(_rotated_boxes(rng, n_iou, 600.0))
+    want = pairwise_iou_rotated(b, b)
+    bd = b.to(device)
+    got = pairwise_iou_rotated(bd, bd)
+    err = float((got.cpu() - want).abs().max())
+    n_diff = int((got.cpu() != want).sum())
+    if err > 1e-5:
+        raise AssertionError(f"rotated IoU on the card differs from the CPU by {err:.3g}")
+    iou_ms = cuda_ms(lambda: pairwise_iou_rotated(bd, bd), 3)
+
+    b = torch.from_numpy(_rotated_boxes(rng, n_nms, 800.0))
+    scores = torch.from_numpy(rng.uniform(0, 1, n_nms).astype(np.float32))
+    valid = torch.ones(n_nms, dtype=torch.bool)
+    card = [b.to(device), scores.to(device), valid.to(device)]
+    _reset_align_nms_counts()
+    keep = nms_rotated_mask(*card, 0.5)
+    torch.cuda.synchronize()
+    launches = _check_launches("phase 19 (d)", _item7_counts(), {
+        "roi_align_fwd": 0, "roi_align_bwd": 0, "nms_mask": 0, "nms_sweep": 1})
+    # the plain fixpoint over the same suppression relation, on the CPU
+    order = torch.sort(scores, descending=True, stable=True).indices
+    bs = card[0][order.to(device)]
+    suppress = (pairwise_iou_rotated(bs, bs) > 0.5).cpu() & torch.ones(
+        n_nms, n_nms, dtype=torch.bool).triu(1)
+    plain = torch.zeros(n_nms, dtype=torch.bool).scatter(
+        0, order, greedy_keep_from_suppression(suppress, valid[order]))
+    if not torch.equal(keep.cpu(), plain):
+        raise AssertionError(f"rotated NMS through the sweep keeps {int(keep.sum())}, the plain "
+                             f"fixpoint {int(plain.sum())}")
+    nms_ms = cuda_ms(lambda: nms_rotated_mask(*card, 0.5), 3)
+    log("item7", f"(d) pairwise_iou_rotated {n_iou} x {n_iou} on the card within {err:.3g} of the "
+                 f"CPU ({n_diff} of {n_iou * n_iou} pairs not bit-identical), {iou_ms:.3f} ms; "
+                 f"nms_rotated_mask at {n_nms} boxes (IoU 0.5) through "
+                 f"kernel C's sweep: keeps {int(keep.sum())}, == the plain fixpoint's over the "
+                 f"same IoU matrix; {nms_ms:.3f} ms; launches {launches} on {smi}")
+    return launches
+
+
+class _HookTrainer:
+    """What LossEvalHook reads of a trainer: its step and its storage."""
+
+    def __init__(self, storage, it: int):
+        self.storage, self.iter = storage, it
+
+
+def _item7_loss_eval(device, smi: str) -> dict:
+    """Phase 19 (e): LossEvalHook over 2 validation batches of the stage-2
+    model, against the model's own "val_loss" totals."""
+    from sos_wsod_torch.engine.hooks import LossEvalHook, batch_generator
+    from sos_wsod_torch.engine.synthetic import (
+        build_synthetic_frcnn, load_config, synthetic_mask_sample)
+    from sos_wsod_torch.engine.ubteacher import stack_samples
+    from sos_wsod_torch.utils.events import EventStorage
+
+    cfg = load_config(str(STAGE2_CONFIG), ITEM7_STAGE2_OPTS)
+    model = build_synthetic_frcnn(cfg, device, SEED)
+    n_batches, per_batch = ITEM7_VAL
+    samples = [synthetic_mask_sample(ITEM7_CANVAS, ITEM7_IMAGE_HW, *ITEM7_GT,
+                                     cfg.MODEL.ROI_HEADS.NUM_CLASSES, SEED + 1 + i)
+               for i in range(n_batches * per_batch)]
+    batches = [stack_samples(samples[i:i + per_batch], device)
+               for i in range(0, len(samples), per_batch)]
+    hook = LossEvalHook(1, model, lambda: iter(batches), max_batches=n_batches)
+    hook.trainer = _HookTrainer(EventStorage(0), 0)
+    _reset_align_nms_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hook.after_step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n_images = n_batches * per_batch
+    launches = _check_launches("phase 19 (e)", _item7_counts(), {
+        "roi_align_fwd": n_images, "roi_align_bwd": 0, "nms_mask": n_images,
+        "nms_sweep": n_images})
+    logged = hook.trainer.storage.latest()["val_total_loss_student"][0]
+    totals = []
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16,
+                                         enabled=model.compute_dtype == torch.bfloat16):
+        for i, b in enumerate(batches):
+            losses = model(b, branch="val_loss", generator=batch_generator(device, 0, i))
+            totals.append(sum(v.float() for v in losses.values()))
+    want = float(torch.stack(totals).double().mean())
+    if logged != want or not np.isfinite(want):
+        raise AssertionError(f"LossEvalHook logged {logged}, the model's own mean {want}")
+    log("item7", f"(e) LossEvalHook over {n_batches} batches of {per_batch} images: "
+                 f"val_total_loss_student {logged:.6f} == the mean of the model's own val_loss "
+                 f"totals ({', '.join(f'{float(x):.6f}' for x in totals)}); {ms:.1f} ms; "
+                 f"launches {launches} on {smi}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_item7(device, smi: str) -> dict:
+    """The modules no JAX entry point reaches: (a) the cascade and mask
+    heads, (b) DeformBottleneckBlock and deform_conv2d, (c) roi_label, (d)
+    the rotated IoU and NMS, (e) LossEvalHook. Returns the launches of D
+    fwd, D bwd and C (C's sweep: rotated NMS launches it alone)."""
+    total = {}
+    for part in (_item7_heads, _item7_deform, _item7_roi_label, _item7_rotated,
+                 _item7_loss_eval):
+        t0 = time.perf_counter()
+        for k, v in (part(device, smi) or {}).items():
+            total[k] = total.get(k, 0) + v
+        log("item7", f"{part.__name__}: {time.perf_counter() - t0:.1f} s")
+    _reset_align_nms_counts()
+    log("item7", f"launches {total} (C's mask kernel {total['nms_mask']}, its sweep "
+                 f"{total['nms_sweep']})")
+    return {"roi_align_fwd": total["roi_align_fwd"], "roi_align_bwd": total["roi_align_bwd"],
+            "nms": total["nms_sweep"]}
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging its wall seconds."""
     t0 = time.perf_counter()
@@ -3325,6 +3900,7 @@ def main() -> int:
                           smi)
     wsjds_launches = timed("17 WSJDS", phase_wsjds, device, smi)
     uwsod_launches = timed("18 UWSOD", phase_uwsod, device, smi)
+    item7_launches = timed("19 item-7 modules", phase_item7, device, smi)
     paths = {"stage-1 inference": infer_launches, "stage-1 training": train_launches,
              "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches,
              "stage-2 training": stage2_train_launches,
@@ -3332,7 +3908,7 @@ def main() -> int:
              "pipeline and TTA": pipeline_launches, "data parallel": ddp_launches,
              "single-view heads": single_launches,
              "CSC, WS-ResNet-50, ROIAlignV2": more_launches, "WSJDS": wsjds_launches,
-             "UWSOD": uwsod_launches}
+             "UWSOD": uwsod_launches, "item-7 modules": item7_launches}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd",
                           "roi_align_bwd", "roi_loop_pool_fwd")}

@@ -39,6 +39,27 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     return torch.where(inter > 0, inter / safe, torch.zeros_like(inter))
 
 
+def pairwise_iou_wsl(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """d2-WSL's signed inner/outer overlap ratio, (..., M, 4), (..., N, 4) ->
+    (..., M, N): inner area / outer area, negative where the boxes do not
+    overlap (an inner side not > 0), 0 where the outer area is 0."""
+    lo1, hi1 = boxes1[..., :, None, :2], boxes1[..., :, None, 2:]
+    lo2, hi2 = boxes2[..., None, :, :2], boxes2[..., None, :, 2:]
+    outer_wh = (torch.maximum(hi1, hi2) - torch.minimum(lo1, lo2)).abs()
+    outer = outer_wh[..., 0] * outer_wh[..., 1]
+    inner_wh = torch.minimum(hi1, hi2) - torch.maximum(lo1, lo2)
+    sign = torch.where((inner_wh > 0).all(dim=-1), 1.0, -1.0)
+    inner = inner_wh[..., 0].abs() * inner_wh[..., 1].abs()
+    return torch.where(outer > 0, inner / outer * sign, torch.zeros_like(outer))
+
+
+def clip_boxes(boxes: torch.Tensor, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Clip XYXY boxes (..., 4) to [0, w] x [0, h] (d2 Boxes.clip); h, w
+    are 0-d tensors."""
+    lim = torch.stack([w, h, w, h]).to(boxes.dtype)
+    return torch.minimum(boxes.clamp(min=0), lim)
+
+
 def apply_deltas(
     deltas: torch.Tensor,
     boxes: torch.Tensor,

@@ -8,8 +8,9 @@ kept when its rank is below the class's budget, so nothing leaves the
 device and no shape depends on the data.
 
 Every uniform draw of the port's training path goes through ``uniform``
-(one torch.Generator, in call order), so a test can stand JAX's draws in
-for it: the two frameworks give different numbers from the same seed.
+(one torch.Generator, in call order), and every random permutation through
+``permutation``, so a test can stand JAX's draws in for them: the two
+frameworks give different numbers from the same seed.
 """
 from __future__ import annotations
 
@@ -21,6 +22,12 @@ import torch
 def uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
     """U[0, 1) float32 of ``shape`` on ``device``, from ``generator``."""
     return torch.rand(shape, generator=generator, device=device)
+
+
+def permutation(n: int, generator: torch.Generator, device) -> torch.Tensor:
+    """A random permutation of range(n), int64 on ``device``, from
+    ``generator``."""
+    return torch.randperm(n, generator=generator, device=device)
 
 
 def _rank_among(mask: torch.Tensor, priority: torch.Tensor) -> torch.Tensor:

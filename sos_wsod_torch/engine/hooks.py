@@ -1,5 +1,5 @@
 """Trainer hooks: HookBase, IterationTimer, PeriodicWriter, CheckpointHook,
-EvalHook and LRSchedulerHook.
+EvalHook, LRSchedulerHook and LossEvalHook.
 
 Counterpart of the same classes in ``sos_wsod_tpu/engine/hooks.py``
 (detectron2's hook surface). The profiler hook is not ported: the port's
@@ -10,9 +10,13 @@ same weights; two ranks must not write one detection JSON).
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Iterable, List, Optional
+
+import numpy as np
+import torch
 
 from ..evaluation.testing import flatten_results_dict
 from ..parallel import comm
@@ -140,3 +144,52 @@ class LRSchedulerHook(HookBase):
 
     def after_step(self):
         self.trainer.storage.put_scalar("lr", self._lr, smoothing_hint=False)
+
+
+def batch_generator(device, seed: int, i: int) -> torch.Generator:
+    """The generator of validation batch ``i``, seeded from (``seed``, i)."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(np.random.SeedSequence((seed, i)).generate_state(1)[0]))
+    return generator
+
+
+class LossEvalHook(HookBase):
+    """Every ``eval_period`` steps, the mean over at most ``max_batches``
+    validation batches of the total of ``model``'s "val_loss" branch (its
+    losses without the gt among the proposals) under no_grad, put as
+    ``val_total_loss_student``; when the trainer has a ``teacher``, that
+    model's too, as ``val_total_loss_teacher`` (ubteacher's LossEvalHook).
+    ``val_iter_fn()`` yields batches as the model's ``losses`` takes them
+    (``engine/ubteacher.py:stack_samples``); batch i draws its sampling from
+    ``batch_generator(device, 0, i)``, the same draws for both models. Runs
+    under bf16 autocast when the model computes in bf16, as the trainers
+    do."""
+
+    def __init__(self, eval_period: int, model, val_iter_fn: Callable[[], Iterable],
+                 max_batches: int = 25):
+        self._period = eval_period
+        self._model = model
+        self._val_iter_fn = val_iter_fn
+        self._max_batches = max_batches
+
+    def compute(self, model) -> float:
+        """The mean total "val_loss" of ``model`` over the validation batches."""
+        device = next(model.parameters()).device
+        totals = []
+        with torch.no_grad(), torch.autocast(device.type, dtype=torch.bfloat16,
+                                             enabled=model.compute_dtype == torch.bfloat16):
+            for i, batch in enumerate(itertools.islice(self._val_iter_fn(), self._max_batches)):
+                losses = model(batch, branch="val_loss",
+                               generator=batch_generator(device, 0, i))
+                totals.append(sum(v.float() for v in losses.values()))
+        return float(torch.stack(totals).double().mean()) if totals else 0.0
+
+    def after_step(self):
+        if self._period <= 0 or (self.trainer.iter + 1) % self._period != 0:
+            return
+        self.trainer.storage.put_scalar("val_total_loss_student", self.compute(self._model),
+                                        smoothing_hint=False)
+        teacher = getattr(self.trainer, "teacher", None)
+        if teacher is not None:
+            self.trainer.storage.put_scalar("val_total_loss_teacher", self.compute(teacher),
+                                            smoothing_hint=False)

@@ -6,7 +6,8 @@ weights, ``build_synthetic_uwsod``), and the stage-2/3 R50-FPN
 Faster R-CNN under detectron2's names, with a checkpoint writer for each, and
 what stage-2 training reads besides the VOC tree: the pseudo-label JSON of
 its splits (``write_pseudo_labels``) and the dataseed file
-(``write_dataseed``).
+(``write_dataseed``); and one image with ground-truth boxes and instance
+masks for the mask and cascade heads (``synthetic_mask_sample``).
 
 Everything is made with numpy from a seed: the same seed gives the same
 weights, images and proposals on any machine.
@@ -385,6 +386,33 @@ def write_dataseed(root: str, cfg, num_images: int) -> str:
     with open(path, "w") as f:
         json.dump({str(dl.SUP_PERCENT): {str(dl.RANDOM_DATA_SEED): sorted(idx.tolist())}}, f)
     return path
+
+
+def synthetic_mask_sample(canvas_hw: Tuple[int, int], image_hw: Tuple[int, int], num_gt: int,
+                          slots: int, num_classes: int, seed: int) -> Dict[str, np.ndarray]:
+    """One image of uniform noise (``image_hw`` on a zero ``canvas_hw``
+    canvas, float32 BGR in [0, 255)) with ``num_gt`` ground-truth boxes in
+    ``slots`` padded slots (each side 15-60% of the image's, classes at
+    random) and their instance masks: a filled ellipse inscribed in each box,
+    (slots, H, W) uint8 on the canvas, zero in the padding. Keys: image,
+    image_hw (float32 (h, w)), gt_boxes, gt_classes, gt_valid, gt_masks."""
+    rng = np.random.default_rng(seed)
+    h, w = image_hw
+    image = np.zeros(tuple(canvas_hw) + (3,), np.float32)
+    image[:h, :w] = rng.uniform(0, 255, (h, w, 3))
+    boxes = np.zeros((slots, 4), np.float32)
+    masks = np.zeros((slots,) + tuple(canvas_hw), np.uint8)
+    yy, xx = np.mgrid[:canvas_hw[0], :canvas_hw[1]] + 0.5
+    for i in range(num_gt):
+        bw, bh = rng.uniform(0.15, 0.6) * w, rng.uniform(0.15, 0.6) * h
+        x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+        boxes[i] = [x1, y1, x1 + bw, y1 + bh]
+        masks[i] = (((xx - x1 - bw / 2) / (bw / 2)) ** 2
+                    + ((yy - y1 - bh / 2) / (bh / 2)) ** 2 <= 1)
+    classes = np.zeros(slots, np.int32)
+    classes[:num_gt] = rng.integers(0, num_classes, num_gt)
+    return {"image": image, "image_hw": np.array(image_hw, np.float32), "gt_boxes": boxes,
+            "gt_classes": classes, "gt_valid": np.arange(slots) < num_gt, "gt_masks": masks}
 
 
 def random_d2_frcnn_state_dict(cfg, seed: int) -> Dict[str, np.ndarray]:

@@ -19,7 +19,10 @@ trees: the RPN head (``proposal_generator.head.*``) and the MRRP backbone's
 shared plain5 kernels (HWIO -> OIHW, one a conv for all branches) are
 leaves like any other. Their DAN fc1 orders differ: the JAX ``UWSODRCNN``
 pools NCHW, (c, h, w), the JAX ``MRRPUWSODRCNN`` channels-last, (h, w, c);
-each port class names its order (``flax_dan_channels_last``).
+each port class names its order (``flax_dan_channels_last``). The
+transposed conv of the mask head (a module named ``deconv``) has its kernel
+flipped in both spatial axes, and DeformBottleneckBlock's raw
+``conv2_kernel`` goes HWIO -> OIHW like a conv kernel.
 """
 from __future__ import annotations
 
@@ -47,9 +50,18 @@ def state_dict_from_flax(params: Mapping[str, Any], dan_channels_last: bool = Tr
                 walk(value, path + (key,))
                 continue
             a = np.array(value, dtype=np.float32)  # a writable copy
-            if key == "kernel":
+            if key == "kernel" and path[-1:] == ("deconv",):
+                # flax ConvTranspose (kh, kw, in, out) -> torch ConvTranspose2d
+                # (in, out, kh, kw): flax's transposed conv does not flip
+                # its kernel, torch's does
+                a = a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+                name = "weight"
+            elif key == "kernel":
                 a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
                 name = "weight"
+            elif key == "conv2_kernel":   # DeformBottleneckBlock's raw HWIO kernel
+                a = a.transpose(3, 2, 0, 1)
+                name = key
             elif key in ("bias", "weight", "running_mean", "running_var") and a.ndim == 1:
                 name = key   # a bias, or one of FrozenBN's four statistics
             else:
@@ -130,7 +142,12 @@ def state_dict_from_d2_frcnn(sd: Mapping[str, Any], role: str = "student"
     port state dict. ``stem.conv1.norm.*`` -> ``stem.conv1_norm.*``,
     ``res2.0.conv1.*`` -> ``res2_block0.conv1.*``, ``fpn_lateral2`` ->
     ``fpn.fpn_lateral2``, ``rpn_head`` -> ``head``; box_head fc1's inputs
-    are reordered to channels-last. pixel_mean/std and anchor buffers are
+    are reordered to channels-last. A cascade's stage heads ``box_head.k``
+    and ``box_predictor.k`` become ``box_head_k`` and ``box_predictor_k``
+    (``models/roi_heads/mask_cascade.py``), the mask head's ``mask_fcn{i}``,
+    ``deconv`` and ``predictor`` keep their names and layouts (the JAX
+    package's bridge transposes the deconv without its spatial flip, so the
+    two packages part there). pixel_mean/std and anchor buffers are
     skipped (the port's are config constants); other keys are skipped with a
     log line."""
     out: Dict[str, torch.Tensor] = {}
@@ -154,12 +171,17 @@ def state_dict_from_d2_frcnn(sd: Mapping[str, Any], role: str = "student"
             name = f"backbone.fpn.{parts[1]}.{parts[2]}"
         elif key.startswith("proposal_generator.rpn_head."):
             name = f"proposal_generator.head.{parts[2]}.{parts[3]}"
-        elif key.startswith("roi_heads.box_head.fc") and len(parts) == 4:
-            name = key
-            if parts[2] == "fc1" and parts[3] == "weight" and a.shape[1] % 49 == 0:
-                a = _fc1_channels_last(a)
-        elif key.startswith("roi_heads.box_predictor.") and len(parts) == 4:
-            name = key
+        elif key.startswith(("roi_heads.box_head.", "roi_heads.box_predictor.")):
+            # box_head.fc1.weight | cascade stage k: box_head.k.fc1.weight
+            head, rest = parts[1], parts[2:]
+            if rest[0].isdigit():
+                head, rest = f"{head}_{rest[0]}", rest[1:]
+            if len(rest) == 2 and (head.startswith("box_predictor") or rest[0].startswith("fc")):
+                name = f"roi_heads.{head}.{rest[0]}.{rest[1]}"
+                if rest == ["fc1", "weight"] and a.shape[1] % 49 == 0:
+                    a = _fc1_channels_last(a)
+        elif key.startswith("roi_heads.mask_head.") and len(parts) == 4:
+            name = key   # torch layouts; the deconv is a ConvTranspose2d already
         if name is None:
             logger.info("unmatched checkpoint key: %s", key)
             continue

@@ -157,6 +157,21 @@ def nms_sweep_cuda(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return keep
 
 
+def suppression_words(suppress: torch.Tensor) -> torch.Tensor:
+    """A suppression matrix in the mask kernel's word layout: suppress
+    (B, S, S) bool, [b, i, j] set where box i suppresses box j (j > i only)
+    -> (B, S, ceil(S / 64)) int64, bit t of word w of row i being
+    suppress[b, i, 64 w + t]. torch ops, no launch: the sweep takes the
+    words of any suppression relation this way (ops/rotated.py)."""
+    bsz, s, _ = suppress.shape
+    w = num_words(s)
+    padded = torch.zeros((bsz, s, w * TILE), dtype=torch.bool, device=suppress.device)
+    padded[..., :s] = suppress
+    shifts = torch.arange(TILE, dtype=torch.int64, device=suppress.device)
+    # the bits are disjoint, so their sum is their OR (bit 63 wraps to the sign)
+    return (padded.view(bsz, s, w, TILE).long() << shifts).sum(-1)
+
+
 def nms_keep_sorted_cuda(boxes: torch.Tensor, valid: torch.Tensor,
                          iou_threshold: float) -> torch.Tensor:
     """Greedy keep in sorted order: boxes (B, S, 4) float32 and valid (B, S)

@@ -1,8 +1,7 @@
 """WS-ResNet: the WSOD flavour of ResNet that the single-view model can take.
 
 Counterpart of ``sos_wsod_tpu/models/backbones/resnet_ws.py`` (the
-reference's build_ws_resnet_backbone), without DeformBottleneckBlock, which
-``WSResNet`` never builds:
+reference's build_ws_resnet_backbone):
   - a deep stem: three 3x3 convs (the first at stride 2), then a 2x2
     max pool at stride 2;
   - blocks never stride. The last block of res2 ends in a 2x2 max pool at
@@ -13,6 +12,9 @@ reference's build_ws_resnet_backbone), without DeformBottleneckBlock, which
     stride 8 end to end, as the dilated VGG16 is; with 1 it is stride 16;
   - FrozenBN everywhere (``models/backbones/resnet.py``, its statistics
     are buffers).
+``DeformBottleneckBlock`` is the same block with its 3x3 conv deformable
+(``ops/deform_conv.py``); as in the JAX package, no config builds it
+(``RESNETS.DEFORM_ON_PER_STAGE`` is read by no module).
 The module names mirror the JAX parameter tree (``stem.conv1``,
 ``stem.conv1_norm`` ... ``res5_block2.shortcut_norm``), so a flax tree
 converts leaf by leaf. cuDNN convs; run the model in
@@ -33,6 +35,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ...ops.deform_conv import deform_conv2d
 from .resnet import DEPTH_BLOCKS, FrozenBN
 
 
@@ -54,6 +57,17 @@ class WSBasicStem(nn.Module):
         for i in (1, 2, 3):
             x = F.relu(getattr(self, f"conv{i}_norm")(getattr(self, f"conv{i}")(x)))
         return F.max_pool2d(x, 2, stride=2)
+
+
+def _edge_pool(out: torch.Tensor, pool_stride: int) -> torch.Tensor:
+    """The blocks' trailing 2x2 max pool: none for ``pool_stride`` 0; at
+    stride 1 after an edge pad of one cell right and bottom, which keeps
+    the size."""
+    if pool_stride == 1:
+        return F.max_pool2d(F.pad(out, (0, 1, 0, 1), mode="replicate"), 2, stride=1)
+    if pool_stride:
+        return F.max_pool2d(out, 2, stride=pool_stride)
+    return out
 
 
 class WSBottleneckBlock(nn.Module):
@@ -78,15 +92,51 @@ class WSBottleneckBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.conv1_norm(self.conv1(x)))
-        out = F.relu(self.conv2_norm(self.conv2(out)))
+        out = F.relu(self.conv2_norm(self._conv2(out)))
         out = self.conv3_norm(self.conv3(out))
         sc = self.shortcut_norm(self.shortcut(x)) if self.has_shortcut else x
-        out = F.relu(out + sc)
-        if self.pool_stride == 1:        # keeps the size
-            out = F.max_pool2d(F.pad(out, (0, 1, 0, 1), mode="replicate"), 2, stride=1)
-        elif self.pool_stride:
-            out = F.max_pool2d(out, 2, stride=self.pool_stride)
-        return out
+        return _edge_pool(F.relu(out + sc), self.pool_stride)
+
+    def _conv2(self, out: torch.Tensor) -> torch.Tensor:
+        return self.conv2(out)
+
+
+class DeformBottleneckBlock(WSBottleneckBlock):
+    """``WSBottleneckBlock`` with a (modulated) deformable 3x3 conv in place
+    of conv2: the 3x3 ``conv2_offset`` (zero at init, so the block starts as
+    a plain bottleneck) predicts 18 offset channels, or 27 when
+    ``deform_modulated``: split [9, 9, 9], the first two nines stacked as
+    (dy, dx) a tap, the sigmoid of the third the modulation.
+    ``conv2_kernel`` (OIHW) is the deformable conv's weight, a parameter of
+    the block as in the JAX tree."""
+
+    def __init__(self, in_channels: int, out_channels: int, bottleneck_channels: int,
+                 dilation: int = 1, deform_modulated: bool = False, pool_stride: int = 0,
+                 device=None):
+        super().__init__(in_channels, out_channels, bottleneck_channels, dilation, pool_stride,
+                         device)
+        del self.conv2
+        self.conv2_offset = nn.Conv2d(bottleneck_channels, 27 if deform_modulated else 18, 3,
+                                      padding=dilation, dilation=dilation, device=device)
+        nn.init.zeros_(self.conv2_offset.weight)
+        nn.init.zeros_(self.conv2_offset.bias)
+        self.conv2_kernel = nn.Parameter(torch.empty(
+            bottleneck_channels, bottleneck_channels, 3, 3, device=device))
+        nn.init.kaiming_normal_(self.conv2_kernel, mode="fan_out", nonlinearity="relu")
+        self.dilation = dilation
+        self.deform_modulated = deform_modulated
+
+    def _conv2(self, out: torch.Tensor) -> torch.Tensor:
+        off = self.conv2_offset(out)
+        if self.deform_modulated:
+            o1, o2, m = off.split(9, dim=1)
+            b, _, h, w = off.shape
+            offset = torch.stack([o1, o2], dim=2).reshape(b, 18, h, w)
+            mask = torch.sigmoid(m)
+        else:
+            offset, mask = off, None
+        return deform_conv2d(out, offset, self.conv2_kernel, mask, stride=1,
+                             padding=self.dilation, dilation=self.dilation)
 
 
 class WSResNet(nn.Module):

@@ -10,14 +10,9 @@ from __future__ import annotations
 
 import torch
 
+from ..core.boxes import clip_boxes
 from ..core.instances import Detections
 from ..ops.nms import nms_mask
-
-
-def _clip(boxes: torch.Tensor, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Clip XYXY boxes to [0, w] x [0, h]; h, w are 0-d tensors."""
-    lim = torch.stack([w, h, w, h]).to(boxes.dtype)
-    return torch.minimum(boxes.clamp(min=0), lim)
 
 
 def fast_rcnn_inference_single(
@@ -38,7 +33,7 @@ def fast_rcnn_inference_single(
     cls_scores = scores[:, :k].float()
     nb = pred_boxes.shape[1] // 4
     hw = image_hw.float()
-    boxes = _clip(pred_boxes.reshape(p, nb, 4), hw[0], hw[1])
+    boxes = clip_boxes(pred_boxes.reshape(p, nb, 4), hw[0], hw[1])
     if nb == 1:
         boxes = boxes.expand(p, k, 4)
 
@@ -71,5 +66,5 @@ def rescale_detections(det: Detections, input_hw: torch.Tensor,
     sy = output_hw[0] / input_hw[0]
     sx = output_hw[1] / input_hw[1]
     scale = torch.stack([sx, sy, sx, sy]).to(det.boxes.dtype)
-    boxes = _clip(det.boxes * scale[None, :], output_hw[0], output_hw[1])
+    boxes = clip_boxes(det.boxes * scale[None, :], output_hw[0], output_hw[1])
     return Detections(boxes=boxes, scores=det.scores, classes=det.classes, valid=det.valid)

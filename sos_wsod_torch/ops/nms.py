@@ -31,7 +31,13 @@ def greedy_keep_sorted_reference(b: torch.Tensor, v: torch.Tensor,
     score-sorted order -> keep (..., S) bool in that order."""
     s = b.shape[-2]
     upper = torch.ones((s, s), dtype=torch.bool, device=b.device).triu(1)
-    suppress = (pairwise_iou(b, b) > iou_threshold) & upper  # [i, j]: i suppresses j
+    return greedy_keep_from_suppression((pairwise_iou(b, b) > iou_threshold) & upper, v)
+
+
+def greedy_keep_from_suppression(suppress: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The plain fixpoint over a suppression matrix: suppress (..., S, S)
+    bool, [i, j] set where box i suppresses box j (j > i only, score-sorted
+    order), v (..., S) valid -> keep (..., S) bool."""
     keep = v
     while True:
         suppressed = (suppress & keep[..., :, None]).any(dim=-2)

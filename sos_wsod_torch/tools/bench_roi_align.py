@@ -220,13 +220,15 @@ def run(device, iters: int = 20, seed: int = 0,
 
 
 def bwd_inputs(device, dtype, seed: int, canvas: Tuple[int, int] = CANVAS,
-               image_hw: Tuple[int, int] = IMAGE_HW, p: int = TRAIN_ROIS, c: int = CHANNELS):
+               image_hw: Tuple[int, int] = IMAGE_HW, p: int = TRAIN_ROIS, c: int = CHANNELS,
+               output_size: Tuple[int, int] = (7, 7)):
     """(grad (P, PH, PW, C) in ``dtype``, level shapes, boxes, valid, level,
-    scales) of ``fpn_inputs``: the upstream gradient is unit normal."""
+    scales) of ``fpn_inputs``: the upstream gradient is unit normal, PH x PW
+    ``output_size`` (the box head's 7 x 7, the mask head's 14 x 14)."""
     feats, boxes, valid, level, scales = fpn_inputs(device, dtype, seed, p=p, c=c,
                                                     canvas=canvas, image_hw=image_hw)
     gen = torch.Generator(device=device).manual_seed(seed)
-    grad = torch.randn((p, 7, 7, c), generator=gen, device=device).to(dtype)
+    grad = torch.randn((p, *output_size, c), generator=gen, device=device).to(dtype)
     return grad, [tuple(f.shape[:2]) for f in feats], boxes, valid, level, scales
 
 
@@ -253,7 +255,7 @@ def check_bwd(grad, shapes, boxes, valid, level, scales, fn: Optional[Callable] 
     again = fn(grad, shapes, boxes, valid, level, scales, **kw)
     want = roi_align_levels_backward_reference(
         grad.cpu().permute(0, 3, 1, 2), shapes, boxes.cpu(), valid.cpu(), level.cpu(), scales,
-        **kw)
+        output_size=tuple(grad.shape[1:3]), **kw)
     err = 0.0
     for i, (g, a, w) in enumerate(zip(got, again, want)):
         if g.dtype != grad.dtype or tuple(g.shape) != (*shapes[i], grad.shape[-1]):
@@ -277,7 +279,8 @@ def check_bwd_close(grad, shapes, boxes, valid, level, scales, fn: Callable, **k
     Returns the largest absolute difference."""
     got = fn(grad, shapes, boxes, valid, level, scales, **kw)
     want = roi_align_levels_backward_reference(grad.permute(0, 3, 1, 2), shapes, boxes, valid,
-                                               level, scales, dtype=torch.float32, **kw)
+                                               level, scales, output_size=tuple(grad.shape[1:3]),
+                                               dtype=torch.float32, **kw)
     tol = ATOMIC_RTOL * max(float(w.abs().max()) for w in want) + ATOMIC_ATOL
     err = 0.0
     for i, (g, w) in enumerate(zip(got, want)):

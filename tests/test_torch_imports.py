@@ -226,6 +226,39 @@ for cls in (UWSODRCNN, MRRPUWSODRCNN):
     with torch.no_grad():
         assert uw.eval().predict(uw_batch)[1].shape == (16, 4)
 
+# the modules no JAX entry point reaches (chip_smoke's phase 19): the
+# cascade and mask heads, the deform block, ROILabel, the rotated ops and
+# LossEvalHook, each once at a small size
+new = {"sos_wsod_torch.models.roi_heads.mask_cascade", "sos_wsod_torch.ops.deform_conv",
+       "sos_wsod_torch.ops.roi_label", "sos_wsod_torch.ops.rotated"}
+assert new <= set(names), sorted(new - set(names))
+from sos_wsod_torch.engine.hooks import LossEvalHook
+from sos_wsod_torch.engine.ubteacher import stack_samples
+from sos_wsod_torch.models.backbones.resnet_ws import DeformBottleneckBlock
+from sos_wsod_torch.models.roi_heads.mask_cascade import CascadeROIHeads, MaskROIHeads
+from sos_wsod_torch.ops.roi_label import roi_label
+from sos_wsod_torch.ops.rotated import nms_rotated_mask
+feats = {f"p{i}": torch.rand(64 >> i, 64 >> i, 8) for i in (2, 3, 4, 5)}
+boxes = torch.tensor([[4.0, 4, 40, 30], [10, 8, 60, 50], [0, 0, 20, 20]])
+on = torch.ones(3, dtype=torch.bool)
+cls = torch.tensor([0, 1, 2])
+cascade = CascadeROIHeads(in_channels=8, num_classes=3, batch_size_per_image=8, fc_dim=16)
+cl = cascade.losses(feats, boxes, torch.zeros(3), on, boxes[:2], cls[:2], on[:2],
+                    torch.Generator().manual_seed(0), torch.tensor([64, 64]))
+mk = MaskROIHeads(in_channels=8, num_classes=3, num_conv=1, conv_dim=8, pooler_resolution=7)
+ml = mk.losses(feats, boxes, on, cls, on, (torch.rand(2, 256, 256) > 0.5).float(),
+               torch.tensor([0, 1, 0]))
+sum(cl.values()).add(ml["loss_mask"]).backward()
+assert mk.predict(feats, boxes, on, cls).shape == (3, 14, 14)
+DeformBottleneckBlock(8, 8, 4, deform_modulated=True)(torch.rand(1, 8, 9, 9)).sum().backward()
+assert nms_rotated_mask(torch.tensor([[5.0, 5, 4, 2, 0], [5, 5, 4, 2, 5], [30, 30, 4, 2, 9]]),
+                        torch.tensor([0.9, 0.8, 0.7]), on, 0.5).tolist() == [True, False, True]
+rl, rw = roi_label(torch.rand(3, 3), torch.eye(3), torch.ones(3), on, torch.Generator())
+assert rl.shape == rw.shape == (3,)
+from sos_wsod_torch.engine.synthetic import synthetic_mask_sample
+val = [stack_samples([synthetic_mask_sample((64, 64), (60, 64), 2, 4, 20, 0)], "cpu")]
+assert LossEvalHook(1, frcnn, lambda: iter(val)).compute(frcnn) > 0
+
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu", "sklearn")
              and sys.modules[m] is not None)
@@ -249,7 +282,8 @@ def test_port_and_chip_smoke_import_without_jax():
     loader on their output, and the stage-1 TTA CLI; and a step of each
     single-view head through the stage-1 CLI (WSJDS's --eval-only too),
     with scikit-learn blocked too; and WSJDS's host CRF round trip; and a
-    step and a predict of each UWSOD model."""
+    step and a predict of each UWSOD model; and a step of the cascade and
+    mask heads, of the deform block, rotated NMS and ROILabel."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

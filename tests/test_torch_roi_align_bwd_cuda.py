@@ -8,9 +8,9 @@ The kernel adds each cell's terms in the plain backward's order with the
 same f32 operations, so each level's gradient is held equal, bit for bit,
 to the plain backward run on the CPU, and to itself across two launches
 (tools/bench_roi_align.py:check_bwd): at the training step's shapes (512
-ROIs, 704 x 960 and 1216 x 1664 canvases), on the forward's adversarial
-cases, and through autograd (the forward kernel, then the backward kernel,
-each launched once).
+ROIs, 704 x 960 and 1216 x 1664 canvases), at the mask head's 14 x 14 bins,
+on the forward's adversarial cases, and through autograd (the forward
+kernel, then the backward kernel, each launched once).
 """
 from __future__ import annotations
 
@@ -45,6 +45,12 @@ def test_backward_kernel_within_tolerance_at_the_training_shapes(device, dtype, 
     n = kernel.launches
     assert bench.check_bwd(*bench.bwd_inputs(device, dtype, 1, canvas, image_hw)) == 0.0
     assert kernel.launches == n + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernel_at_the_mask_heads_14x14_bins(device, dtype):
+    """196 bins a ROI, more than a pass of the walk takes at 7 x 7."""
+    assert bench.check_bwd(*bench.bwd_inputs(device, dtype, 4, output_size=(14, 14))) == 0.0
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -19,8 +19,8 @@ is kept checkable in three ways:
   are not empty in (p, ph, pw) order, and each lane's adds in queue order in
   f32 with one rounding for each product and each add. It must equal the
   plain backward bit for bit, through several tile sizes, ragged map edges,
-  invalid ROIs, V1, a sample cap of 16 and a fixed ratio of 20, in both
-  dtypes.
+  invalid ROIs, V1, a sample cap of 16, a fixed ratio of 20 and the mask
+  head's 14 x 14 bins, in both dtypes.
 
 The emulation cannot see the .cu drift from it: the card tests
 (``tests/test_torch_roi_align_bwd_cuda.py``) hold the kernel bit-identical
@@ -140,11 +140,11 @@ def test_tile_pairs_at_the_training_shapes(canvas, image_hw, pairs, terms):
 
 # --- the plain backward ------------------------------------------------------
 
-def _case(canvas=(100, 132), p=30, c=5, seed=0, dtype=torch.float32):
+def _case(canvas=(100, 132), p=30, c=5, seed=0, dtype=torch.float32, output_size=(7, 7)):
     """p2-p5 of a canvas whose maps have ragged 8 x 8 tiles, ROIs of every
     level (sides of 8 to 700 px, some outside the image, reversed and
     sub-cell ones), every seventh invalid, and a unit normal upstream
-    gradient, all from numpy."""
+    gradient of ``output_size`` bins, all from numpy."""
     rng = np.random.default_rng(seed)
     shapes = [(-(-canvas[0] // s), -(-canvas[1] // s)) for s in bench.STRIDES]
     side = np.array([8, 20, 60, 150, 300, 700])[np.arange(p) % 6, None] * \
@@ -157,7 +157,8 @@ def _case(canvas=(100, 132), p=30, c=5, seed=0, dtype=torch.float32):
     boxes = torch.from_numpy(b)
     valid = torch.from_numpy(np.arange(p) % 7 != 3)
     level = assign_boxes_to_levels(boxes, 2, 5)
-    grad = torch.from_numpy(rng.standard_normal((p, 7, 7, c)).astype(np.float32)).to(dtype)
+    grad = torch.from_numpy(rng.standard_normal((p, *output_size, c)).astype(np.float32)
+                            ).to(dtype)
     return grad, shapes, boxes, valid, level, [1.0 / s for s in bench.STRIDES]
 
 
@@ -315,12 +316,15 @@ def test_tiled_walk_is_the_plain_backward_bit_for_bit(tile, queue, tables, dtype
 
 
 @pytest.mark.parametrize("kw", [{"aligned": False}, {"sample_cap": 16}, {"sampling_ratio": 20},
-                                {"sampling_ratio": 3}])
+                                {"sampling_ratio": 3}, {"output_size": (14, 14)}])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_tiled_walk_options(kw, dtype):
-    """V1, a cap of 16 and fixed ratios (20: 40 table entries a bin along
-    each axis in the plain version, at most a tile's side in the kernel's)."""
-    args = _case(dtype=dtype, seed=4, p=12 if kw.get("sampling_ratio") == 20 else 30)
+    """V1, a cap of 16, fixed ratios (20: 40 table entries a bin along
+    each axis in the plain version, at most a tile's side in the kernel's)
+    and the mask head's 14 x 14 bins (196 a ROI: one ROI a pass, a pass's
+    bins filling most of a queue)."""
+    args = _case(dtype=dtype, seed=4, p=12 if kw.get("sampling_ratio") == 20 else 30,
+                 output_size=kw.get("output_size", (7, 7)))
     _assert_walk_is_plain(args, tile=(8, 8), queue=kernel.QUEUE, tables=kernel.TABLES, **kw)
 
 
