@@ -268,7 +268,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
      kernel C's sweep alone, keeping what the plain fixpoint keeps over the
      same IoU matrix; (e) LossEvalHook over 2 validation batches of 2 images
      of the stage-2 detector: its val_total_loss_student equal to the mean
-     of the model's own "val_loss" totals (D fwd and C once an image).
+     of the model's own "val_loss" totals (D fwd and C once an image);
+ 20. the entry points, tensor parallelism and the weight readers: (a)
+     sos_wsod_torch.entry.entry() on the card (the flagship OICR+ forward at
+     the JAX entry's sizes, f32): its shapes, A fwd and C once, every output
+     equal to the all-plain path's, its warm time; (b) tensor parallelism of
+     the DAN fc stack at full width (voc07_oicr_plus.yaml: VGG16, DAN 25088
+     -> 4096 -> 4096, K = 4, P = 4096, bf16; cut: SOLVER.IMS_PER_BATCH 4 ->
+     1): two gloo ranks sharing the card as dp1 x tp2
+     (sos_wsod_torch/parallel/tensor.py), 3 steps from the seeded weights,
+     the first against one process's step on the same weights, batch and
+     seed (total_loss and loss_cls within 1%, the gathered fc1 and fc2
+     after the update within rtol 1e-2 / atol 1e-5, the same A fwd, A bwd
+     and C launches a rank as one process), the second's time, the third's
+     all-reduces each timed alone (bytes, ms), peak memory a rank; the
+     ranks' checkpoint, in the one-process layout, loads into one process's
+     trainer; (c) sos_wsod_torch.entry.dryrun_multichip(4) on the card, 4
+     gloo ranks sharing it; (d) the weight readers: caffe2 R-50 blobs
+     (pickled, from the seed) into voc_baseline's R50-FPN and d2 VGG16 blobs
+     into OICR+, each followed by one predict, and a blob of another shape
+     raising.
 The images/sec it prints are smoke readings: 4 inference images with
 evaluate() and the JSON write inside the window, and a few training steps;
 tools/profile_torch_inference.py measures the stage-1 inference throughput.
@@ -423,6 +442,17 @@ ITEM7_KINK = 1e-5   # a ReLU input's two devices may straddle 0 within this of t
 ITEM7_ROI_LABEL = (4096, 20)
 ITEM7_ROTATED = (1000, 2000)
 ITEM7_VAL = (2, 2)
+# phase 20: the tensor-parallel step's ranks (dp1 x tp2 on the one card) and
+# steps (the first against one process, the second timed, the third's
+# all-reduces traced); its cut: SOLVER.IMS_PER_BATCH 4 -> 1; the dryrun's
+# ranks; further overrides of the tensor-parallel step and of the readers'
+# models (none on the card)
+TP_WORLD = 2
+TP_STEPS = 3
+TP_OPTS = []
+DRYRUN_RANKS = 4
+READER_STAGE1_OPTS = []
+READER_STAGE2_OPTS = []
 
 
 def log(phase: str, msg: str) -> None:
@@ -3865,6 +3895,374 @@ def phase_item7(device, smi: str) -> dict:
             "nms": total["nms_sweep"]}
 
 
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _pool_nms_counts() -> dict:
+    """A fwd, A bwd and C launches since their counts were last set to 0."""
+    from sos_wsod_torch.kernels import roi_pool, roi_pool_bwd
+
+    return {"roi_pool_fwd": roi_pool.launches, "roi_pool_bwd": roi_pool_bwd.launches,
+            "nms": _nms_launches()}
+
+
+def _reset_pool_nms_counts() -> None:
+    from sos_wsod_torch.kernels import roi_pool, roi_pool_bwd
+
+    roi_pool.launches = roi_pool_bwd.launches = 0
+    _reset_nms_launches()
+
+
+def _device_of(device: str) -> torch.device:
+    return torch.device(device, 0) if device == "cuda" else torch.device(device)
+
+
+def _entry_forward(device, smi: str) -> dict:
+    """(a) ``sos_wsod_torch.entry.entry()``: the flagship OICR+ forward at
+    the JAX entry's sizes (P = 512, 256 x 320, full DAN, f32) on the card;
+    its shapes, A fwd and C once, every output equal to the all-plain
+    path's; the warm forward's time."""
+    from sos_wsod_torch.entry import entry
+
+    fn, (model, batch) = entry(_device_of(device))
+    _reset_pool_nms_counts()
+    out = fn(model, batch)
+    _sync(device)
+    counts = _pool_nms_counts()
+    shapes = [tuple(o.shape) for o in out]
+    if counts != {"roi_pool_fwd": 1, "roi_pool_bwd": 0, "nms": 1}:
+        raise AssertionError(f"entry: launches {counts}, want A fwd 1 and C 1")
+    if shapes != [(512, 21), (512, 80), (100, 4), (100,)] or \
+            not all(torch.isfinite(o).all() for o in out):
+        raise AssertionError(f"entry: outputs of shapes {shapes}, finite "
+                             f"{[bool(torch.isfinite(o).all()) for o in out]}")
+    with _plain_versions(roi_pool=True):
+        plain = fn(model, batch)
+    if not all(torch.equal(a, b) for a, b in zip(out, plain)):
+        raise AssertionError("entry: the forward differs from the all-plain path's")
+    times = []
+    for _ in range(5):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn(model, batch)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log("entry", f"entry(): outputs {shapes}, finite, equal to the all-plain path's; A fwd "
+                 f"{counts['roi_pool_fwd']}, C {counts['nms']}; warm forward "
+                 f"{statistics.median(times[1:]):.2f} ms (median of 4, f32, host clock after a "
+                 f"synchronize) on {smi}")
+    del model, out, plain
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def _split_in_one_process(tp: int):
+    """``DAN.forward`` as ``tp`` tensor-parallel ranks compute it, all in
+    this process: fc1's rows and fc2's columns in ``tp`` shards, the mask
+    after fc1 drawn whole once and sliced, fc2's partial products rounded
+    to the compute dtype and summed in rank order, its bias added after.
+    The split's arithmetic without its collectives, to tell its sum order
+    from a fault."""
+    from sos_wsod_torch.models.heads import dan as dan_mod
+
+    forward = dan_mod.DAN.forward
+
+    def split(self, x, generator=None):
+        x = x.reshape(x.shape[0], -1)
+        n = self.fc1.weight.shape[0] // tp
+        rows = [slice(r * n, (r + 1) * n) for r in range(tp)]
+        h = [F.relu(F.linear(x, self.fc1.weight[s], self.fc1.bias[s])) for s in rows]
+        if self.training and self.dropout_rate:
+            keep = torch.rand((x.shape[0], n * tp), generator=generator,
+                              device=x.device) >= self.dropout_rate
+            h = [hr * keep[:, s].to(hr.dtype) * (1.0 / (1.0 - self.dropout_rate))
+                 for hr, s in zip(h, rows)]
+        parts = [F.linear(hr, self.fc2.weight[:, s].contiguous()) for hr, s in zip(h, rows)]
+        y = parts[0]
+        for part in parts[1:]:
+            y = y + part
+        y = y + self.fc2.bias.to(y.dtype)
+        x = dan_mod.dropout(F.relu(y), self.dropout_rate, self.training, generator)
+        for i in range(2, self.num_fc):
+            x = dan_mod.dropout(F.relu(getattr(self, f"fc{i + 1}")(x)), self.dropout_rate,
+                                self.training, generator)
+        return x
+
+    dan_mod.DAN.forward = split
+    try:
+        yield
+    finally:
+        dan_mod.DAN.forward = forward
+
+
+def _tp_step(device, smi: str) -> dict:
+    """(b) Tensor parallelism at full width: voc07_oicr_plus.yaml (VGG16,
+    DAN 25088 -> 4096 -> 4096, K = 4, P = 4096, bf16), ``TP_WORLD`` gloo
+    ranks sharing the card as dp1 x tp2 (``check_ddp.run_tasks``), 3 steps
+    of one image from the seeded weights, dropout 0.5. The first step
+    against one process's step on the card from the same weights, batch and
+    seed: total_loss and loss_cls within 1%, the gathered fc1 after the
+    update within rtol 1e-2 / atol 1e-5 (the JAX package's bound on its
+    tensor-parallel fc1), the kernels' launches a rank equal to the one
+    process's; fc2's difference is printed beside its largest update. And
+    against the same step in one process with the ranks' arithmetic
+    (``_split_in_one_process``: fc2's sum split and ordered as theirs):
+    losses, fc1 and fc2 bit-identical. The second step timed warm, the
+    third's all-reduces traced; the checkpoint the ranks wrote after the
+    first step (the one-process layout) loads into one process's
+    trainer."""
+    from sos_wsod_torch.engine.checkpoint import Checkpointer
+    from sos_wsod_torch.engine.launch import launch
+    from sos_wsod_torch.engine.synthetic import build_synthetic_model, load_config
+    from sos_wsod_torch.tools import check_ddp
+
+    dev = _device_of(device)
+    opts = ["SOLVER.IMS_PER_BATCH", 1, *TP_OPTS]
+    cfg = load_config(str(CONFIG), opts)
+    model = build_synthetic_model(cfg, dev, SEED)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the global batches, mapped once here for the ranks and this process
+    batches = check_ddp.stage1_batches(cfg, TP_STEPS, RAW_HW, NUM_PROPOSALS, SEED)
+    spec = {"kind": "stage1", "config": str(CONFIG), "opts": opts, "model": state,
+            "dan_dropout": 0.5, "batches": batches}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tp.pt")
+        torch.save(dict(spec, tp=TP_WORLD, snapshot_at=1, trace_at=2, save_at=1,
+                        report_model=False), path)
+        os.makedirs(os.path.join(tmp, "report"))
+        t0 = time.perf_counter()
+        launch(check_ddp.run_tasks, TP_WORLD,
+               args=([{"name": "tp", "cli": "steps", "spec": path, "out_dir": tmp}],
+                     os.path.join(tmp, "report"), tmp),
+               backend="gloo", device=device)
+        secs_ranks = time.perf_counter() - t0
+        ranks = [r[0] for r in check_ddp.load_reports(os.path.join(tmp, "report"), TP_WORLD)]
+
+        # one process, same weights, batches and seed: plainly, then with
+        # the ranks' arithmetic
+        one = {}
+        for name, ctx in (("plain", contextlib.nullcontext()),
+                          ("split", _split_in_one_process(TP_WORLD))):
+            one_model, trainer = check_ddp.build_trainer(spec, batches)
+            _reset_pool_nms_counts()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            with ctx:
+                trainer.train(0, 1)
+            _sync(dev)
+            hist = trainer.storage.histories()
+            one[name] = {
+                "launches": _pool_nms_counts(),
+                "peak": torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0,
+                "fc": {k: v.detach().float().cpu().clone()
+                       for k, v in one_model.state_dict().items()
+                       if k.startswith("roi_heads.dan.fc")},
+                "losses": {k: hist[k].values()[0][0] for k in ("total_loss", "loss_cls")}}
+            if name == "plain":
+                t0 = time.perf_counter()
+                trainer.train(1, 2)
+                _sync(dev)
+                one_ms = (time.perf_counter() - t0) * 1e3
+                ckpt = Checkpointer(os.path.join(tmp, "checkpoints")).load("model_0000000",
+                                                                           map_location=dev)
+                trainer.load_state_dict(ckpt)   # strict: the one-process layout
+                if trainer.steps_done != 1:
+                    raise AssertionError(f"the ranks' checkpoint resumed at {trainer.steps_done}")
+                del ckpt
+            del trainer, one_model
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+    one_launches = one["plain"]["launches"]
+    for r, e in enumerate(ranks):
+        if e["tp"] != TP_WORLD or [x["iter"] for x in e["records"]] != list(range(TP_STEPS)):
+            raise AssertionError(f"tp rank {r}: tp {e['tp']}, steps {e['records']}")
+        first = {k: e["records"][0]["launches"][k] for k in one_launches}
+        if first != one_launches or one["split"]["launches"] != one_launches:
+            raise AssertionError(f"tp rank {r}: launches of the first step {first}, one "
+                                 f"process's {one_launches}, split in one process "
+                                 f"{one['split']['launches']}")
+    losses = {k: ranks[0]["scalars"][k][0][1] for k in ("total_loss", "loss_cls")}
+    snap = {k: ranks[0]["snapshot"][k].float() for k in one["plain"]["fc"]}
+    rel = {k: abs(v - one["plain"]["losses"][k]) / abs(one["plain"]["losses"][k])
+           for k, v in losses.items()}
+    if max(rel.values()) > 1e-2:
+        raise AssertionError(f"tp step losses {losses} against one process's "
+                             f"{one['plain']['losses']}")
+    if losses != one["split"]["losses"] or \
+            any(not torch.equal(snap[k], v) for k, v in one["split"]["fc"].items()):
+        raise AssertionError(
+            f"tp step against its arithmetic in one process: losses {losses} vs "
+            f"{one['split']['losses']}, largest fc differences "
+            f"{ {k: float((snap[k] - v).abs().max()) for k, v in one['split']['fc'].items()} }")
+    diffs = {}
+    for k, want in one["plain"]["fc"].items():
+        diffs[k] = (float((snap[k] - want).abs().max()), float((want - state[k]).abs().max()))
+        if k.startswith("roi_heads.dan.fc1") and \
+                not torch.allclose(snap[k], want, rtol=1e-2, atol=1e-5):
+            raise AssertionError(f"tp step {k}: largest difference {diffs[k][0]}")
+    w = ranks[0]["records"]
+    trace = ranks[0]["tp_trace"]
+    peaks = ", ".join(f"{e.get('peak_gb', 0):.2f}" for e in ranks)
+    log("tp", f"dp1 x tp{TP_WORLD}, {TP_WORLD} gloo ranks sharing one card (not a scaling "
+              f"figure; the ranks {secs_ranks:.1f} s): step 1 equals, bit for bit (losses, fc1, "
+              f"fc2), one process's step run with the ranks' split of fc2's sum; against one "
+              f"process's own step: total_loss and loss_cls within "
+              f"{rel['total_loss']:.2e} / {rel['loss_cls']:.2e} relative (bound 1e-2), each "
+              f"weight's largest difference after the update beside its largest update: " +
+        "; ".join(f"{k.split('.', 2)[-1]} {d:.3e} / {u:.3e}" for k, (d, u) in diffs.items()) +
+        f" (fc1 within rtol 1e-2 / atol 1e-5); launches a rank and step {w[0]['launches']} "
+        f"(one process {one_launches}); the checkpoint loads into one process's trainer")
+    log("tp", f"warm step {w[1]['ms']:.1f} ms a rank (one process's warm step {one_ms:.1f} ms), "
+              f"the traced step {w[2]['ms']:.1f} ms; peak {peaks} GB by rank (one process "
+              f"{one['plain']['peak']:.2f} GB); each "
+              f"all-reduce of the traced step on rank 0 (synchronized alone, gloo through the "
+              f"host): " + "; ".join(f"{x['op']} {x['shape']} {x['dtype']} {x['bytes'] / 1e6:.1f} "
+                                     f"MB {x['ms']:.1f} ms" for x in trace) + f" on {smi}")
+    launches = {k: v + one["split"]["launches"][k] for k, v in one_launches.items()}
+    for e in ranks:
+        for k in launches:
+            launches[k] += e["launches"][k]
+    return launches
+
+
+def _dryrun(device, smi: str) -> dict:
+    """(c) ``dryrun_multichip(DRYRUN_RANKS)``: gloo ranks sharing the card
+    (fewer cards than ranks), the data-parallel step and the dp1 x tp4
+    step, within the JAX bound of each other."""
+    from sos_wsod_torch.entry import dryrun_multichip
+    from sos_wsod_torch.tools import check_ddp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dryrun_multichip(DRYRUN_RANKS, device, out_dir=tmp)
+        secs = time.perf_counter() - t0
+        reports = check_ddp.load_reports(tmp, DRYRUN_RANKS)
+    r = reports[0]
+    launches = {k: sum(x["launches"][k] for x in reports) for k in ("roi_pool_fwd",
+                                                                     "roi_pool_bwd", "nms")}
+    log("dryrun", f"dryrun_multichip({DRYRUN_RANKS}) on the card ({secs:.1f} s, gloo ranks "
+                  f"sharing it): total_loss {r['dp']['total_loss']:.6f}, dp1 x tp{r.get('tp')} "
+                  f"{r.get('dp_tp', {}).get('total_loss', float('nan')):.6f}; launches of the "
+                  f"ranks {launches} on {smi}")
+    return launches
+
+
+def _readers(device, smi: str) -> dict:
+    """(d) The weight readers on the card: caffe2 R-50 blobs (pickled, from
+    the seed) into voc_baseline's R50-FPN ``bottom_up`` and d2 VGG16 blobs
+    into the OICR+ model, each followed by one forward; a blob of another
+    shape raises."""
+    import pickle
+
+    from sos_wsod_torch.engine.synthetic import (
+        build_synthetic_frcnn, load_config, random_c2_resnet_blobs, random_d2_wsl_blobs,
+        synthetic_test_samples)
+    from sos_wsod_torch.engine.weights import (
+        load_resnet_imagenet_weights, load_vgg_wsl_weights, state_dict_from_c2_resnet)
+    from sos_wsod_torch.kernels import roi_align
+    from sos_wsod_torch.models.meta.rcnn_wsl import MultiInputRCNN
+
+    dev = _device_of(device)
+    launches = {}
+
+    def refused(load, model, path) -> str:
+        try:
+            load(model, path)
+        except ValueError as e:
+            return str(e)
+        raise AssertionError(f"{load.__name__}: a blob of another shape was taken")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg2 = load_config(str(STAGE2_CONFIG), READER_STAGE2_OPTS)
+        frcnn = build_synthetic_frcnn(cfg2, dev, SEED)
+        blobs = random_c2_resnet_blobs(frcnn.state_dict(), SEED + 1)
+        path = os.path.join(tmp, "R-50.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(blobs, f)
+        t0 = time.perf_counter()
+        load_resnet_imagenet_weights(frcnn, path)
+        secs_r50 = time.perf_counter() - t0
+        want = state_dict_from_c2_resnet(blobs)
+        own = frcnn.state_dict()
+        if not all(torch.equal(own[k].cpu(), v) for k, v in want.items()):
+            raise AssertionError("R-50 reader: the bottom_up entries differ from the blobs")
+        sample = synthetic_test_samples(cfg2, 1, RAW_HW, NUM_PROPOSALS, SEED)[0][0]
+        roi_align.launches = 0
+        _reset_nms_launches()
+        with torch.inference_mode(), torch.autocast(dev.type, dtype=torch.bfloat16,
+                                                    enabled=frcnn.compute_dtype == torch.bfloat16):
+            det = frcnn.predict(_stage2_batch(sample, dev))[0]
+        _sync(dev)
+        launches.update(roi_align_fwd=roi_align.launches, nms=_nms_launches())
+        if not torch.isfinite(det.scores.float()).all():
+            raise AssertionError("R-50 reader: non-finite scores")
+        bad = dict(blobs, res3_0_branch2b_w=blobs["res3_0_branch2b_w"][:, :-1])
+        with open(path, "wb") as f:
+            pickle.dump(bad, f)
+        msg_r50 = refused(load_resnet_imagenet_weights, frcnn, path)
+        del frcnn, own, want
+
+        cfg1 = load_config(str(CONFIG), READER_STAGE1_OPTS)
+        model = MultiInputRCNN.from_cfg(cfg1, device=dev).eval()
+        d2 = random_d2_wsl_blobs(SEED + 2, cfg1.MODEL.ROI_HEADS.NUM_CLASSES, cfg1.WSL.REFINE_NUM,
+                                 cfg1.MODEL.ROI_BOX_HEAD.DAN_DIM)
+        path = os.path.join(tmp, "vgg16_d2.pkl")
+        with open(path, "wb") as f:
+            pickle.dump({"model": d2}, f)
+        t0 = time.perf_counter()
+        load_vgg_wsl_weights(model, path)
+        secs_vgg = time.perf_counter() - t0
+        sample = synthetic_test_samples(cfg1, 1, RAW_HW, NUM_PROPOSALS, SEED)[0][0]
+        _reset_pool_nms_counts()
+        with torch.inference_mode(), torch.autocast(dev.type, dtype=torch.bfloat16,
+                                                    enabled=model.compute_dtype == torch.bfloat16):
+            det = model.predict(_stage2_batch(sample, dev))[0]
+        _sync(dev)
+        counts = _pool_nms_counts()
+        if counts != {"roi_pool_fwd": 1, "roi_pool_bwd": 0, "nms": 1} or \
+                not torch.isfinite(det.scores.float()).all():
+            raise AssertionError(f"VGG16 reader: launches {counts}, finite "
+                                 f"{bool(torch.isfinite(det.scores.float()).all())}")
+        launches["roi_pool_fwd"] = counts["roi_pool_fwd"]
+        launches["nms"] += counts["nms"]
+        d2["roi_heads.box_head.fc2.weight"] = d2["roi_heads.box_head.fc2.weight"][:-1]
+        with open(path, "wb") as f:
+            pickle.dump({"model": d2}, f)
+        msg_vgg = refused(load_vgg_wsl_weights, model, path)
+        del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log("readers", f"caffe2 R-50 blobs ({len(blobs)}) into voc_baseline's R50-FPN bottom_up in "
+                   f"{secs_r50:.2f} s, equal to the blobs, then predict (D fwd "
+                   f"{launches['roi_align_fwd']}, C {launches['nms'] - counts['nms']}); d2 "
+                   f"VGG16 blobs ({len(d2)}) into OICR+ in {secs_vgg:.2f} s, then predict (A fwd "
+                   f"{counts['roi_pool_fwd']}, C {counts['nms']}); a blob of another shape "
+                   f"raises: {msg_r50!r}; {msg_vgg!r}; on {smi}")
+    return launches
+
+
+def phase_finish(smi: str, device: str = "cuda") -> dict:
+    """Phase 20: the entry points, tensor parallelism and the weight
+    readers, (a)-(d) (see the module's docstring), on ``device`` ("cuda";
+    "cpu" for a rehearsal). Returns the kernels' launches of its paths, the
+    ranks' included."""
+    totals = dict.fromkeys(KERNELS, 0)
+    for part in (_entry_forward, _tp_step, _dryrun, _readers):
+        t0 = time.perf_counter()
+        for k, v in part(device, smi).items():
+            totals[k] += v
+        log("finish", f"{part.__name__}: {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging its wall seconds."""
     t0 = time.perf_counter()
@@ -3901,6 +4299,7 @@ def main() -> int:
     wsjds_launches = timed("17 WSJDS", phase_wsjds, device, smi)
     uwsod_launches = timed("18 UWSOD", phase_uwsod, device, smi)
     item7_launches = timed("19 item-7 modules", phase_item7, device, smi)
+    finish_launches = timed("20 entry points, tensor parallelism, readers", phase_finish, smi)
     paths = {"stage-1 inference": infer_launches, "stage-1 training": train_launches,
              "stage-1 CLI": cli_launches, "stage-2 inference and CLI": stage2_launches,
              "stage-2 training": stage2_train_launches,
@@ -3908,7 +4307,8 @@ def main() -> int:
              "pipeline and TTA": pipeline_launches, "data parallel": ddp_launches,
              "single-view heads": single_launches,
              "CSC, WS-ResNet-50, ROIAlignV2": more_launches, "WSJDS": wsjds_launches,
-             "UWSOD": uwsod_launches, "item-7 modules": item7_launches}
+             "UWSOD": uwsod_launches, "item-7 modules": item7_launches,
+             "entry points, tensor parallelism, readers": finish_launches}
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in ("roi_pool_fwd", "roi_pool_bwd", "nms", "roi_align_fwd",
                           "roi_align_bwd", "roi_loop_pool_fwd")}

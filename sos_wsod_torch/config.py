@@ -4,10 +4,12 @@ Reads the repo's released YAML configs (``configs/stage1/*.yaml`` and
 ``configs/stage23/*.yaml``) with the
 merge rules of ``sos_wsod_tpu/config/cfg_node.py``: ``_BASE_`` resolves
 relative to the child file, values are coerced to the type of the default,
-and keys the defaults do not name are taken as they are. The defaults hold
-only the keys the port reads or a user overrides; every other key of a YAML
-file still lands in the tree. ``freeze``/``defrost``/``clone``/``dump``
-behave as the JAX package's.
+and keys the defaults do not name are taken as they are. The defaults are
+the JAX package's ``get_cfg()`` key for key, many of them read by no module
+(as there), with two differences: MODEL.DEVICE names a torch device, and
+the TPU-only knobs of ``TPU_ONLY_KEYS`` are left out; a YAML file or an
+override that sets one of those raises. ``freeze``/``defrost``/``clone``/
+``dump`` behave as the JAX package's.
 """
 from __future__ import annotations
 
@@ -19,6 +21,16 @@ from typing import Any, Dict, List
 import yaml
 
 _BASE_KEY = "_BASE_"
+# the JAX package's XLA knobs (the lax.scan superstep, the Pallas-or-table
+# pool switch and its row chunks, the TPU's hardware PRNG): the port has no
+# such machinery, so a config that sets one is refused rather than ignored
+TPU_ONLY_KEYS = ("TPU.SCAN_STEPS", "TPU.POOL_IMPL", "TPU.POOL_ROW_CHUNKS", "TPU.PRNG_IMPL")
+
+
+def _refuse_tpu_only(key: str) -> None:
+    if key in TPU_ONLY_KEYS:
+        raise KeyError(f"{key} is a TPU-only knob of the JAX package (XLA scan steps, Pallas "
+                       f"pool, hardware PRNG); the PyTorch port has no counterpart: drop it")
 
 
 class CfgNode(dict):
@@ -81,6 +93,7 @@ class CfgNode(dict):
         if len(opts) % 2:
             raise ValueError(f"override list has odd length: {opts}")
         for key, value in zip(opts[0::2], opts[1::2]):
+            _refuse_tpu_only(key)
             *parents, leaf = key.split(".")
             node = self
             for p in parents:
@@ -116,12 +129,13 @@ def _coerce_value(value: Any, old: Any, key: str) -> Any:
                      f"{type(value).__name__} ({value!r})")
 
 
-def _merge_a_into_b(a: Dict[str, Any], b: CfgNode) -> None:
+def _merge_a_into_b(a: Dict[str, Any], b: CfgNode, prefix: str = "") -> None:
     for k, v in a.items():
         if k == _BASE_KEY:
             continue
+        _refuse_tpu_only(prefix + k)
         if isinstance(b.get(k), CfgNode) and isinstance(v, dict):
-            _merge_a_into_b(v, b[k])
+            _merge_a_into_b(v, b[k], f"{prefix}{k}.")
         else:
             b[k] = _coerce_value(v, b[k], k) if k in b else v
 
@@ -138,20 +152,31 @@ def _load_yaml_with_base(filename: str) -> Dict[str, Any]:
 
 
 def get_cfg() -> CfgNode:
-    """The defaults of every key the port reads (the values of the JAX
-    package's ``get_cfg()``; MODEL.DEVICE names a torch device, "cuda" as in
-    detectron2, where the JAX package says "tpu")."""
+    """The JAX package's ``get_cfg()`` with its values, but MODEL.DEVICE, a
+    torch device ("cuda" as in detectron2, where the JAX package says
+    "tpu"), and without ``TPU_ONLY_KEYS``. Keys that no module of the port
+    reads (as none of the JAX package does) are kept so that the released
+    configs and command lines merge: VERSION, VIS_PERIOD, CUDNN_BENCHMARK,
+    MODEL.MASK_ON/KEYPOINT_ON/ROI_MASK_HEAD/MRRP, the VGG depth and
+    features, INPUT.FORMAT and friends, SOLVER.AMP, the TEST evaluator and
+    PRECISE_BN keys, TEST.VAL_LOSS, WSL.SAMPLING and the other WSL flags,
+    EMAMODEL, and the TPU capacities and dtypes the port does not use."""
     return CfgNode({
+        "VERSION": 2,
+        "VIS_PERIOD": 0,
+        "CUDNN_BENCHMARK": False,
         "OUTPUT_DIR": "./output",
         "MODEL": {
             "META_ARCHITECTURE": "GeneralizedRCNN",
             "DEVICE": "cuda",
             "WEIGHTS": "",
+            "MASK_ON": False,
+            "KEYPOINT_ON": False,
             "LOAD_PROPOSALS": False,
             "PIXEL_MEAN": [103.530, 116.280, 123.675],   # BGR
             "PIXEL_STD": [1.0, 1.0, 1.0],
             "BACKBONE": {"NAME": "build_resnet_backbone", "FREEZE_AT": 2},
-            "VGG": {"CONV5_DILATION": 1},
+            "VGG": {"DEPTH": 16, "OUT_FEATURES": ["plain5"], "CONV5_DILATION": 1},
             "RESNETS": {"DEPTH": 50, "OUT_FEATURES": ["res4"], "NUM_GROUPS": 1,
                         "NORM": "FrozenBN", "WIDTH_PER_GROUP": 64, "STRIDE_IN_1X1": True,
                         "RES5_DILATION": 1, "RES2_OUT_CHANNELS": 256,
@@ -184,20 +209,29 @@ def get_cfg() -> CfgNode:
                              "NUM_CONV": 0, "CONV_DIM": 256, "NORM": "",
                              "CLS_AGNOSTIC_BBOX_REG": False, "TRAIN_ON_PRED_BOXES": False,
                              "DAN_DIM": [4096, 4096]},
+            "ROI_MASK_HEAD": {"NAME": "MaskRCNNConvUpsampleHead", "POOLER_RESOLUTION": 14,
+                              "POOLER_SAMPLING_RATIO": 0, "NUM_CONV": 0, "CONV_DIM": 256,
+                              "NORM": "", "CLS_AGNOSTIC_MASK": False,
+                              "POOLER_TYPE": "ROIAlignV2"},
             # the WSJDS head's ASPP branch; no module reads these keys, as in
             # the JAX package, whose GeneralizedRCNNWSL.from_cfg does not either
             "SEM_SEG_HEAD": {"NAME": "SemSegFPNHead", "NUM_CLASSES": 54,
                              "ASSP_CONVS_DIM": [1024, 1024], "MASK_SOFTMAX": False,
                              "CONSTRAINT": False},
+            "MRRP": {"MRRP_ON": False, "NUM_BRANCH": 3, "BRANCH_DILATIONS": [1, 2, 3],
+                     "MRRP_STAGE": "res4", "TEST_BRANCH_IDX": 1},
         },
-        "INPUT": {"MIN_SIZE_TRAIN": (800,), "MAX_SIZE_TRAIN": 1333,
-                  "MIN_SIZE_TEST": 800, "MAX_SIZE_TEST": 1333,
+        "INPUT": {"MIN_SIZE_TRAIN": (800,), "MIN_SIZE_TRAIN_SAMPLING": "choice",
+                  "MAX_SIZE_TRAIN": 1333, "MIN_SIZE_TEST": 800, "MAX_SIZE_TEST": 1333,
                   "RANDOM_FLIP": "horizontal",
-                  "CROP": {"ENABLED": False, "TYPE": "relative_range", "SIZE": [0.9, 0.9]}},
-        "DATASETS": {"TRAIN": (), "TEST": (), "PROPOSAL_FILES_TRAIN": (),
-                     "PROPOSAL_FILES_TEST": (), "PRECOMPUTED_PROPOSAL_TOPK_TRAIN": 2000,
-                     "PRECOMPUTED_PROPOSAL_TOPK_TEST": 1000},
+                  "CROP": {"ENABLED": False, "TYPE": "relative_range", "SIZE": [0.9, 0.9]},
+                  "FORMAT": "BGR", "MASK_FORMAT": "polygon"},
+        "DATASETS": {"TRAIN": (), "TEST": (), "VAL": (), "PROPOSAL_FILES_TRAIN": (),
+                     "PROPOSAL_FILES_TEST": (), "PROPOSAL_FILES_VAL": (),
+                     "PRECOMPUTED_PROPOSAL_TOPK_TRAIN": 2000,
+                     "PRECOMPUTED_PROPOSAL_TOPK_TEST": 1000, "CROSS_DATASET": False},
         "DATALOADER": {"NUM_WORKERS": 4, "ASPECT_RATIO_GROUPING": True,
+                       "SAMPLER_TRAIN": "TrainingSampler", "REPEAT_THRESHOLD": 0.0,
                        "FILTER_EMPTY_ANNOTATIONS": True,
                        # stages 2-3: the labeled share of DATASETS.TRAIN, by a dataseed file
                        "SUP_PERCENT": 100.0, "RANDOM_DATA_SEED": 0,
@@ -209,6 +243,7 @@ def get_cfg() -> CfgNode:
             "MOMENTUM": 0.9,
             "NESTEROV": False,
             "WEIGHT_DECAY": 0.0001,
+            "WEIGHT_DECAY_NORM": 0.0,
             "GAMMA": 0.1,
             "STEPS": (30000,),
             "FACTOR_LIST": (1,),
@@ -224,19 +259,32 @@ def get_cfg() -> CfgNode:
             "WEIGHT_DECAY_BIAS": 0.0001,
             "REFINE_LR_SCALE": 1.0,
             "REFINE_SCALE_ON": False,
-            "CLIP_GRADIENTS": {"ENABLED": False, "CLIP_TYPE": "value", "CLIP_VALUE": 1.0},
+            "AMP": False,
+            "CLIP_GRADIENTS": {"ENABLED": False, "CLIP_TYPE": "value", "CLIP_VALUE": 1.0,
+                               "NORM_TYPE": 2.0},
         },
-        "TEST": {"EVAL_PERIOD": 0, "EXPECTED_RESULTS": [], "DETECTIONS_PER_IMAGE": 100,
+        "TEST": {"EVAL_PERIOD": 0, "EVAL_TRAIN": True, "EXPECTED_RESULTS": [],
+                 "DETECTIONS_PER_IMAGE": 100,
                  # test-time augmentation (tools/train_net_test_tta.py)
                  "AUG": {"ENABLED": False,
                          "MIN_SIZES": (400, 500, 600, 700, 800, 900, 1000, 1100, 1200),
-                         "MAX_SIZE": 4000, "FLIP": True}},
-        "WSL": {"ITER_SIZE": 1, "MEAN_LOSS": True, "REFINE_NUM": 3,
+                         "MAX_SIZE": 4000, "FLIP": True},
+                 "PRECISE_BN": {"ENABLED": False, "NUM_ITER": 200},
+                 "VAL_LOSS": True, "EVALUATOR": "COCOeval"},
+        "WSL": {"VIS_TEST": False, "ITER_SIZE": 1, "MEAN_LOSS": True,
                 "SIZE_EPOCH": 5000,   # CMIL's continuation schedule
+                "CMIL": False, "USE_OBN": True,
                 "CSC_MAX_ITER": 35000,   # the CSC head's constraints end after this step
-                "REFINE_REG": [False, False, False], "REFINE_MIST": False,
-                "MIST_P": 0.10, "MIST_THRE": 0.05, "MIST_TYPE": "nms"},
-        "OICRPLUS": {"BBOX_UPDATE": False},
+                "REFINE_NUM": 3, "REFINE_REG": [False, False, False], "HAS_GAM": False,
+                "REFINE_MIST": False, "MIST_P": 0.10, "MIST_THRE": 0.05, "MIST_TYPE": "nms",
+                "CLS_AGNOSTIC_BBOX_KNOWN": False, "CASCADE_ON": False,
+                "SAMPLING": {"SAMPLING_ON": False, "SAMPLING_TYPE": "high", "LB": 100,
+                             "LAMBDA_MAX": 0.51,
+                             "IOU_THRESHOLDS": [[0.5], [0.5], [0.5], [0.5]],
+                             "IOU_LABELS": [[0, 1], [0, 1], [0, 1], [0, 1]],
+                             "BATCH_SIZE_PER_IMAGE": [4096, 4096, 4096, 4096],
+                             "POSITIVE_FRACTION": [1.0, 1.0, 1.0, 1.0]}},
+        "OICRPLUS": {"BBOX_UPDATE": False, "PROPOSAL_NUM": 100000},
         "WSODEVAL": {"SAVE_DETECTION_RESULT": False, "SAVE_PATH": ""},
         # stages 2-3 (Unbiased Teacher)
         "SEMISUPNET": {"Trainer": "ubteacher", "BBOX_THRESHOLD": 0.7,
@@ -245,13 +293,19 @@ def get_cfg() -> CfgNode:
                        "UNSUP_LOSS_WEIGHT": 4.0, "SUP_LOSS_WEIGHT": 0.5,
                        "LOSS_WEIGHT_TYPE": "standard", "BURN_UP_WITH_STRONG_AUG": False,
                        "HAS_MULTI_LABEL": False, "EVAL_TEACHER": True},
+        "EMAMODEL": {"SUP_CONSIST": True},
         # the config files' own namespace for padding and dtype knobs
         "TPU": {"PROPOSAL_CAPACITY": 4096, "PROPOSAL_BUCKETS": (), "PGT_SEED_CAPACITY": 1024,
                 "PGT_CAPACITY": 128,   # ground-truth slots an image, stages 2-3
-                "IMAGE_SIZE_DIVISIBILITY": 64, "COMPUTE_DTYPE": "bfloat16",
-                # the JAX package's mesh: MESH_DEVICES has no role here (the
-                # world is --num-gpus x --num-machines processes); a model
-                # axis above 1 (tensor parallelism) raises, it is not ported
-                "MESH_DEVICES": 0, "MODEL_AXIS_SIZE": 1},
+                "DETECTIONS_CAPACITY": 256, "IMAGE_SIZE_DIVISIBILITY": 64,
+                "MAX_IMAGE_BUCKETS": 12, "COMPUTE_DTYPE": "bfloat16",
+                "PARAM_DTYPE": "float32",
+                # the JAX package's mesh: MESH_AXES and MESH_DEVICES have no
+                # role here (the world is --num-gpus x --num-machines
+                # processes); MODEL_AXIS_SIZE > 1 splits that world into
+                # tensor-parallel groups of that size (parallel/tensor.py),
+                # read by the stage-1 CLI alone, as in the JAX package
+                "MESH_AXES": ("data",), "MESH_DEVICES": 0, "MODEL_AXIS_SIZE": 1,
+                "REMAT_BACKBONE": False},
         "SEED": -1,
     })

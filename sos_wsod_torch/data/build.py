@@ -10,7 +10,9 @@ get_detection_dataset_dicts, TrainingSampler and aspect-ratio grouping):
     largest bucketed canvas of its members, per scale;
   - test: ``DatasetMapperTest``, one resized image and its proposals per
     sample, in dataset order.
-Rank and world size come from ``torch.distributed`` when it is initialized.
+Rank and world size are the data-parallel ones (``rank_and_world``): the
+process's in ``torch.distributed`` when it is initialized, the replica's
+under tensor parallelism.
 """
 from __future__ import annotations
 
@@ -59,11 +61,14 @@ def get_detection_dataset_dicts(names: Sequence[str], filter_empty: bool = True,
 
 
 def rank_and_world() -> Tuple[int, int]:
-    """This process's rank and the world size (``parallel/comm.py``), or
-    (0, 1) outside a process group."""
-    from ..parallel import comm
+    """This process's data-parallel rank and their number: the process's
+    rank and the world size (``parallel/comm.py``), (0, 1) outside a
+    process group; under tensor parallelism the replica's
+    (``parallel/tensor.py``), shared by the ranks of a tensor-parallel
+    group, which map the same images."""
+    from ..parallel import tensor
 
-    return comm.get_rank(), comm.get_world_size()
+    return tensor.data_rank(), tensor.data_world_size()
 
 
 def training_index_stream(n: int, seed: int = 0, shuffle: bool = True, rank: int = 0,
@@ -231,11 +236,12 @@ class DatasetMapperTest:
         }
 
 
-def build_stage1_test_loader(cfg, dataset_name: str,
-                             mapper=None) -> Iterator[Dict[str, np.ndarray]]:
+def build_stage1_test_loader(cfg, dataset_name: str, mapper=None,
+                             shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict[str, np.ndarray]]:
     """The mapped test samples of ``dataset_name`` in dataset order, with
     its entry of DATASETS.PROPOSAL_FILES_TEST when it is one of
-    DATASETS.TEST and MODEL.LOAD_PROPOSALS is set."""
+    DATASETS.TEST and MODEL.LOAD_PROPOSALS is set; with ``shard`` (r, n)
+    only the images whose index is r mod n."""
     proposal_files = None
     tests = list(cfg.DATASETS.TEST)
     if cfg.MODEL.LOAD_PROPOSALS and dataset_name in tests and cfg.DATASETS.PROPOSAL_FILES_TEST:
@@ -243,4 +249,4 @@ def build_stage1_test_loader(cfg, dataset_name: str,
     dataset_dicts = get_detection_dataset_dicts([dataset_name], filter_empty=False,
                                                 proposal_files=proposal_files)
     mapper = mapper or DatasetMapperTest.from_cfg(cfg)
-    return (mapper(d) for d in dataset_dicts)
+    return (mapper(d) for d in dataset_dicts[shard[0]::shard[1]])

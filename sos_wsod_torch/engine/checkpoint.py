@@ -6,8 +6,9 @@ Files are ``<output_dir>/<name>.pth`` (``model_{iter:07d}``, ``model_final``)
 and a ``last_checkpoint`` marker names the newest. In a process group only
 rank 0 writes them, the other ranks wait at a barrier, and every rank loads
 onto its own device. A trainer's state holds the module's own
-``state_dict`` (no DDP prefix), so a checkpoint of any world size loads in
-any other and in ``--eval-only``.
+``state_dict`` (no DDP prefix), in the one-process layout under tensor
+parallelism too, so a checkpoint of any world size and tensor-parallel
+size loads in any other and in ``--eval-only``.
 """
 from __future__ import annotations
 

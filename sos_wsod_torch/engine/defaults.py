@@ -82,17 +82,12 @@ def default_setup(cfg, args) -> None:
     """Logging, ``OUTPUT_DIR``/config.yaml (written by rank 0) and numpy's
     seed (SEED >= 0). Raises when the flags ask for more than one process
     but this one is in no process group (``main`` called without
-    ``engine.launch.launch``), and for TPU.MODEL_AXIS_SIZE > 1: tensor
-    parallelism is not ported."""
+    ``engine.launch.launch``)."""
     wanted = args.num_gpus * args.num_machines
     if wanted > 1 and comm.get_world_size() == 1:
         raise RuntimeError(f"--num-gpus {args.num_gpus} --num-machines {args.num_machines} but "
                            "this process is in no process group: start the CLI through "
                            "engine.launch.launch (python -m ...), which spawns the processes")
-    if cfg.TPU.MODEL_AXIS_SIZE > 1:
-        raise NotImplementedError(
-            f"TPU.MODEL_AXIS_SIZE {cfg.TPU.MODEL_AXIS_SIZE}: tensor parallelism of the DAN fc "
-            "stack is not ported (ROADMAP Queue 1 item 6); the port runs data parallel only")
     setup_logging(cfg.OUTPUT_DIR)
     logger.info("Command line args: %s", args)
     if cfg.OUTPUT_DIR:

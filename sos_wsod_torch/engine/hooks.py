@@ -6,7 +6,9 @@ Counterpart of the same classes in ``sos_wsod_tpu/engine/hooks.py``
 layers carry torch.profiler ranges instead. In a process group the CLIs
 give PeriodicWriter to rank 0 only, the checkpointer writes on rank 0, and
 EvalHook evaluates on rank 0 while the others wait (every rank holds the
-same weights; two ranks must not write one detection JSON).
+same weights; two ranks must not write one detection JSON), or, for a
+model split over tensor-parallel groups, on every rank, each evaluating
+its share and rank 0 the whole.
 """
 from __future__ import annotations
 
@@ -108,14 +110,18 @@ class EvalHook(HookBase):
     """Runs ``eval_fn`` after every ``eval_period``-th step except the last,
     and once after training when training reached ``max_iter``; puts the
     flattened results ("<dataset>/bbox/AP50", ...) as unsmoothed scalars.
-    In a process group rank 0 evaluates and the others wait for it."""
+    In a process group rank 0 evaluates and the others wait for it; with
+    ``all_ranks`` every rank calls ``eval_fn`` (a collective evaluation,
+    whose results rank 0 returns)."""
 
-    def __init__(self, eval_period: int, eval_fn: Callable[[], Optional[dict]]):
+    def __init__(self, eval_period: int, eval_fn: Callable[[], Optional[dict]],
+                 all_ranks: bool = False):
         self._period = eval_period
         self._fn = eval_fn
+        self._all_ranks = all_ranks
 
     def _do_eval(self):
-        if comm.is_main_process():
+        if self._all_ranks or comm.is_main_process():
             results = self._fn()
             if results:
                 self.trainer.storage.put_scalars(smoothing_hint=False,

@@ -71,6 +71,33 @@ def random_d2_wsl_blobs(seed: int, num_classes: int, refine_k: int,
     return blobs
 
 
+_C2_BRANCH = {"shortcut": "branch1", "conv1": "branch2a", "conv2": "branch2b",
+              "conv3": "branch2c"}
+
+
+def random_c2_resnet_blobs(state_dict: Dict[str, torch.Tensor], seed: int,
+                           prefix: str = "backbone.bottom_up.") -> Dict[str, np.ndarray]:
+    """Random blobs under caffe2's ImageNet ResNet names (``conv1_w``,
+    ``res_conv1_bn_{s,b}``, ``res{s}_{b}_branch{1,2a,2b,2c}_{w,bn_s,bn_b}``)
+    for every conv and FrozenBN of ``state_dict``'s entries under
+    ``prefix``, in their shapes, plus a classifier blob (``fc1000_w``) that
+    no model reads: the input of ``engine/weights.py``'s caffe2 reader."""
+    rng = np.random.default_rng(seed)
+    blobs = {"fc1000_w": rng.standard_normal((10, 8), dtype=np.float32)}
+    for name, t in state_dict.items():
+        if not name.startswith(prefix) or "running_" in name:
+            continue
+        mod, conv, leaf = name[len(prefix):].split(".")
+        base = "res_conv1" if mod == "stem" else \
+            "{}_{}_{}".format(*mod.split("_block"), _C2_BRANCH[conv.removesuffix("_norm")])
+        if conv.endswith("_norm"):
+            key = f"{base}_bn_{'s' if leaf == 'weight' else 'b'}"
+        else:
+            key = "conv1_w" if mod == "stem" else f"{base}_w"
+        blobs[key] = rng.standard_normal(tuple(t.shape), dtype=np.float32)
+    return blobs
+
+
 def synthetic_test_samples(cfg, n: int, raw_hw: Tuple[int, int], num_proposals: int,
                            seed: int) -> Tuple[List[dict], Dict[str, dict]]:
     """``n`` test samples with the keys of the JAX package's

@@ -11,8 +11,9 @@ jitted step:
     package's optax.MultiSteps), then clipping, SGD and the LR schedule
     step once;
   - a non-finite total raises FloatingPointError before its backward;
-  - dropout draws from a torch.Generator seeded with max(SEED, 0) (rank r
-    of a process group: ``comm.derive_seed(max(SEED, 0), r)``);
+  - dropout draws from a torch.Generator seeded with max(SEED, 0) (data
+    parallel rank d of a process group: ``comm.derive_seed(max(SEED, 0),
+    d)``);
   - ``state_dict``/``load_state_dict`` carry what a resumed run needs:
     model, optimizer, LR schedule, the dropout generator (every rank's),
     ``iter`` (steps completed) and gradients accumulated towards an update.
@@ -25,7 +26,18 @@ from its loader, every backward but the one that completes an update runs
 under ``no_sync``, and DDP's mean over the ranks of the gradients, each the
 rank's per-image mean, is the global batch's mean (the losses are per-image
 means, so no count crosses the ranks). The logged scalars are means over
-the ranks (``comm.reduce_dict``). Profiler ranges: ``h2d``, ``backward``,
+the ranks (``comm.reduce_dict``).
+
+Under tensor parallelism (TPU.MODEL_AXIS_SIZE > 1, ``parallel/tensor.py``)
+the trainer shards the model's DAN fc stack over the tensor-parallel group
+when it is built; DDP then runs over the data-parallel group, every
+parameter under it, split or not. The ranks of a tensor-parallel group see
+the same images (the loaders shard by data-parallel rank) and draw the same
+dropout masks (the generator is seeded by the data-parallel rank), a norm
+clip sums the split parameters' squares over the group, and
+``state_dict``/``load_state_dict`` speak the one-process layout (gathered
+on save, cut on load), so a checkpoint moves between any tensor-parallel
+size and one process. Profiler ranges: ``h2d``, ``backward``,
 ``optimizer`` and those of ``MultiInputRCNN.loss``; ``cpg`` for the CSC and
 WSJDS heads' CPG maps, computed before each image's loss.
 """
@@ -40,7 +52,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 from torch.profiler import record_function
 
-from ..parallel import comm
+from ..parallel import comm, tensor
 from ..solver.build import build_optimizer, clip_gradients
 from ..utils.events import EventStorage
 from .hooks import HookBase
@@ -103,11 +115,11 @@ class TrainerBase:
 
 
 def seeded_generator(device, seed: int) -> torch.Generator:
-    """A generator on ``device`` seeded for this rank:
+    """A generator on ``device`` seeded for this data-parallel rank:
     ``comm.derive_seed(seed, rank)``, ``seed`` itself on rank 0 and in one
-    process."""
+    process (the ranks of a tensor-parallel group share theirs)."""
     generator = torch.Generator(device=device)
-    generator.manual_seed(comm.derive_seed(seed, comm.get_rank()))
+    generator.manual_seed(comm.derive_seed(seed, tensor.data_rank()))
     return generator
 
 
@@ -121,6 +133,9 @@ class DataParallelMixin:
     model: torch.nn.Module
     ddp: Optional[torch.nn.parallel.DistributedDataParallel]
     generator: torch.Generator
+    # {name: split dimension} of the parameters split over the
+    # tensor-parallel group: none but in Stage1Trainer under tensor parallelism
+    tp_dims: Dict[str, int] = {}
 
     def run(self, fn: Callable[[torch.nn.Module], Any], sync: bool = True):
         """``fn(model)``; in a process group inside DDP's forward, which
@@ -134,19 +149,21 @@ class DataParallelMixin:
 
     def generator_states(self) -> Dict[str, Any]:
         """{"generator": this rank's state}, and in a process group
-        "generators": every rank's, by rank (on every rank)."""
+        "generators": every data-parallel rank's, by that rank (on every
+        rank; the ranks of a tensor-parallel group hold the same state)."""
         state = self.generator.get_state()
         out = {"generator": state}
         if comm.get_world_size() > 1:
-            out["generators"] = comm.process_gather([state])
+            out["generators"] = comm.process_gather([state])[::tensor.size()]
             out["generator"] = out["generators"][0]
         return out
 
     def load_generator_state(self, state: Dict[str, Any]) -> None:
-        """This rank's generator state of ``state``: its own entry of
-        "generators", else (a checkpoint of one process) "generator" on
-        rank 0; a rank the checkpoint has no state for keeps its seed."""
-        rank = comm.get_rank()
+        """This data-parallel rank's generator state of ``state``: its own
+        entry of "generators", else (a checkpoint of one process)
+        "generator" on data-parallel rank 0; a rank the checkpoint has no
+        state for keeps its seed."""
+        rank = tensor.data_rank()
         per_rank = state.get("generators")
         if per_rank is not None and rank < len(per_rank):
             self.generator.set_state(per_rank[rank].cpu())
@@ -168,11 +185,14 @@ class Stage1Trainer(DataParallelMixin, TrainerBase):
         super().__init__()
         self.cfg = cfg
         self.model = model.train()
-        self.ddp = comm.wrap_ddp(model)
+        self.tp_dims = tensor.shard_model(model)
+        self.ddp = comm.wrap_ddp(model, tensor.data_group())
         self.data_iter = data_iter
         self.device = next(model.parameters()).device
         self.optimizer, self.scheduler = build_optimizer(cfg, model)
         self.params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        self._sharded = [p for g in self.optimizer.param_groups if g["name"] in self.tp_dims
+                         for p in g["params"]]
         self.iter_size = max(1, int(cfg.WSL.ITER_SIZE or 1))
         self.generator = seeded_generator(self.device, max(cfg.SEED, 0))
         self._micro_steps = 0
@@ -212,7 +232,7 @@ class Stage1Trainer(DataParallelMixin, TrainerBase):
         self._micro_steps += 1
         if self._micro_steps % self.iter_size == 0:
             with record_function("optimizer"):
-                clip_gradients(self.cfg, self.params)
+                clip_gradients(self.cfg, self.params, self._sharded)
                 self.optimizer.step()
                 self.scheduler.step()
                 self.optimizer.zero_grad(set_to_none=True)
@@ -241,22 +261,26 @@ class Stage1Trainer(DataParallelMixin, TrainerBase):
         """What a resumed run needs; ``iter`` is the number of steps done.
         Gradients accumulated towards the next update (WSL.ITER_SIZE > 1)
         are kept too; in a process group each rank's, which are its own
-        until the update's all-reduce ("rank_grads", by rank). Collective
-        in a process group: every rank calls it."""
+        until the update's all-reduce ("rank_grads", by rank). Model,
+        momenta and gradients are in the one-process layout. Collective in
+        a process group: every rank calls it."""
         pending = self._micro_steps % self.iter_size
-        grads = [p.grad for p in self.params] if pending else None
+        grads = [self._gather(name, p.grad) for name, p in self._named_params()] \
+            if pending else None
         acc = {"micro_steps": pending, "grads": grads}
         if pending and comm.get_world_size() > 1:
             acc["rank_grads"] = comm.process_gather([[g.cpu() for g in grads]])
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "scheduler": self.scheduler.state_dict(), **self.generator_states(),
-                "iter": self.steps_done, "accumulated": acc}
+        optimizer = self._map_momenta(self.optimizer.state_dict(), self._gather)
+        return {"model": tensor.gather_state_dict(self.model.state_dict(), self.tp_dims),
+                "optimizer": optimizer, "scheduler": self.scheduler.state_dict(),
+                **self.generator_states(), "iter": self.steps_done, "accumulated": acc}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Restore a ``state_dict`` (tensors on the model's device), with
-        this rank's generator state and accumulated gradients."""
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        this rank's generator state and accumulated gradients, each split
+        tensor cut to this rank's shard."""
+        self.model.load_state_dict(tensor.shard_state_dict(state["model"], self.tp_dims))
+        self.optimizer.load_state_dict(self._map_momenta(state["optimizer"], self._cut))
         self.scheduler.load_state_dict(state["scheduler"])
         self.load_generator_state(state)
         self.steps_done = int(state["iter"])
@@ -265,6 +289,40 @@ class Stage1Trainer(DataParallelMixin, TrainerBase):
         grads = acc["grads"]
         rank_grads = acc.get("rank_grads")
         if rank_grads is not None and comm.get_rank() < len(rank_grads):
-            grads = [g.to(self.device) for g in rank_grads[comm.get_rank()]]
-        for p, g in zip(self.params, grads or [None] * len(self.params)):
-            p.grad = g
+            grads = rank_grads[comm.get_rank()]
+        for (name, p), g in zip(self._named_params(), grads or [None] * len(self.params)):
+            p.grad = None if g is None else self._cut(name, g.to(self.device))
+
+    def _map_momenta(self, optimizer: Dict[str, Any], fn) -> Dict[str, Any]:
+        """A copy of an SGD ``state_dict`` with ``fn(name, buffer)`` applied
+        to the momentum buffers of the split parameters (the optimizer's
+        own state is left alone)."""
+        if not self.tp_dims:
+            return optimizer
+        states = dict(optimizer["state"])
+        for group in optimizer["param_groups"]:
+            for i in group["params"]:
+                buf = states.get(i)
+                if group["name"] in self.tp_dims and buf and \
+                        buf.get("momentum_buffer") is not None:
+                    states[i] = {**buf, "momentum_buffer": fn(group["name"],
+                                                               buf["momentum_buffer"])}
+        return {**optimizer, "state": states}
+
+    def _named_params(self):
+        """(name, parameter) in the optimizer's order."""
+        return [(g["name"], p) for g in self.optimizer.param_groups for p in g["params"]]
+
+    def _gather(self, name: str, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """``t`` (a parameter's shard, or a tensor shaped like it) in the
+        one-process layout."""
+        if t is None or name not in self.tp_dims:
+            return t
+        return tensor.gather_state_dict({name: t}, self.tp_dims)[name]
+
+    def _cut(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A one-process tensor of parameter ``name`` cut to this rank's
+        shard."""
+        if name not in self.tp_dims:
+            return t
+        return tensor.shard(t, self.tp_dims[name], tensor.rank(), tensor.size()).clone()

@@ -23,10 +23,20 @@ each port class names its order (``flax_dan_channels_last``). The
 transposed conv of the mask head (a module named ``deconv``) has its kernel
 flipped in both spatial axes, and DeformBottleneckBlock's raw
 ``conv2_kernel`` goes HWIO -> OIHW like a conv kernel.
+
+The pretrained-weight readers (counterparts of the JAX package's
+``load_pkl``, ``resnet_c2_param_tree``, ``merge_pretrained`` and the
+``load_*`` functions): a d2 or caffe2 ``.pkl`` (``load_pkl``), caffe2's
+ImageNet R-50 blobs (``state_dict_from_c2_resnet``), a torchvision VGG16
+(``state_dict_from_torchvision_vgg16``) and a released stage-1 ``.pth``
+with d2-WSL names become port state dicts, and ``load_pretrained``
+overwrites the entries of a built model that they name, shape-checked,
+leaving the others as initialised.
 """
 from __future__ import annotations
 
 import logging
+import pickle
 from typing import Any, Dict, Iterable, Mapping, Optional
 
 import numpy as np
@@ -198,3 +208,141 @@ def load_weights(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
     model.to_empty(device=device)
     model.load_state_dict(state_dict, strict=True)
     return model.to(memory_format=torch.channels_last).eval()
+
+
+def load_pkl(path: str) -> Dict[str, np.ndarray]:
+    """The arrays of a detectron2 or caffe2 ``.pkl`` (latin-1 pickles of
+    numpy blobs, under "model" when it is there)."""
+    with open(path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+    blobs = data.get("model", data)
+    return {k: np.asarray(v) for k, v in blobs.items()
+            if isinstance(v, np.ndarray) or hasattr(v, "shape")}
+
+
+_C2_BRANCH = {"branch1": "shortcut", "branch2a": "conv1", "branch2b": "conv2",
+              "branch2c": "conv3"}
+
+
+def state_dict_from_c2_resnet(blobs: Mapping[str, np.ndarray],
+                              prefix: str = "backbone.bottom_up.") -> Dict[str, torch.Tensor]:
+    """caffe2 ImageNet ResNet blobs (``conv1_w``, ``res_conv1_bn_{s,b}``,
+    ``res{s}_{b}_branch{1,2a,2b,2c}_{w,bn_s,bn_b}``) -> the stage-2
+    backbone's ``bottom_up`` entries (``stem.conv1``, ``res{s}_block{b}.
+    {shortcut,conv1,conv2,conv3}`` and their ``_norm``). The convs keep
+    torch's OIHW; an affine BN becomes FrozenBN weight ``s`` and bias ``b``
+    with mean 0 and variance 1 (caffe2 folds the statistics into them).
+    Other blobs (the classifier, momenta) are left out."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name: str, a) -> None:
+        out[prefix + name] = torch.from_numpy(np.array(a, np.float32))
+
+    def put_norm(name: str, scale, shift) -> None:
+        put(f"{name}.weight", scale)
+        put(f"{name}.bias", shift)
+        put(f"{name}.running_mean", np.zeros_like(shift))
+        put(f"{name}.running_var", np.ones_like(scale))
+
+    if "conv1_w" in blobs:
+        put("stem.conv1.weight", blobs["conv1_w"])
+        put_norm("stem.conv1_norm", blobs["res_conv1_bn_s"], blobs["res_conv1_bn_b"])
+    for key, v in blobs.items():
+        parts = key.split("_")
+        if not key.startswith("res") or key.startswith("res_conv1") or len(parts) < 4:
+            continue
+        stage, block, branch, rest = parts[0], parts[1], parts[2], "_".join(parts[3:])
+        conv = _C2_BRANCH.get(branch)
+        if conv is None:
+            continue
+        mod = f"{stage}_block{block}"
+        if rest == "w":
+            put(f"{mod}.{conv}.weight", v)
+        elif rest == "bn_s":
+            put_norm(f"{mod}.{conv}_norm", v, blobs[key[:-1] + "b"])
+    return out
+
+
+# torchvision vgg16's ``features`` conv indices, stage by stage
+_TV_VGG16_LAYOUT = (("plain1", (0, 2)), ("plain2", (5, 7)), ("plain3", (10, 12, 14)),
+                    ("plain4", (17, 19, 21)), ("plain5", (24, 26, 28)))
+
+
+def state_dict_from_torchvision_vgg16(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A torchvision ``vgg16`` state dict (``features.N.*``, ``classifier.
+    {0,3}.*``) -> the VGG16 backbone's ``backbone.plainX.convY`` and the
+    DAN's fc1 (inputs reordered to channels-last) and fc2. torchvision's
+    weights expect RGB / 255 normalised input, the reference's caffe
+    weights BGR minus the mean: the preprocessing is not converted."""
+    def arr(key):
+        v = sd.get(key)
+        if v is None:
+            return None
+        return np.array(v.detach().cpu().numpy() if torch.is_tensor(v) else v, np.float32)
+
+    out: Dict[str, torch.Tensor] = {}
+    for stage, idxs in _TV_VGG16_LAYOUT:
+        for j, li in enumerate(idxs, start=1):
+            w, b = arr(f"features.{li}.weight"), arr(f"features.{li}.bias")
+            if w is None:
+                logger.info("missing torchvision key features.%d.weight", li)
+                continue
+            out[f"backbone.{stage}.conv{j}.weight"] = torch.from_numpy(w)
+            if b is not None:
+                out[f"backbone.{stage}.conv{j}.bias"] = torch.from_numpy(b)
+    for j, li in enumerate((0, 3), start=1):
+        w, b = arr(f"classifier.{li}.weight"), arr(f"classifier.{li}.bias")
+        if w is not None:
+            if j == 1 and w.shape[1] % 49 == 0:
+                w = _fc1_channels_last(w)
+            out[f"roi_heads.dan.fc{j}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
+        if b is not None:
+            out[f"roi_heads.dan.fc{j}.bias"] = torch.from_numpy(b)
+    return out
+
+
+def load_pretrained(model: nn.Module, pretrained: Mapping[str, torch.Tensor]) -> nn.Module:
+    """Copy the entries of ``pretrained`` into ``model``'s parameters and
+    buffers of the same name, in place, and return the model; every other
+    entry keeps its initialised value. Every shape is checked before any
+    copy: a mismatch raises ValueError with the name and both shapes. The
+    names of ``pretrained`` the model lacks are logged."""
+    own = model.state_dict()
+    for name, v in pretrained.items():
+        if name in own and tuple(v.shape) != tuple(own[name].shape):
+            raise ValueError(f"shape mismatch at {name}: pretrained {tuple(v.shape)} vs "
+                             f"model {tuple(own[name].shape)}")
+    unmatched = sorted(set(pretrained) - set(own))
+    if unmatched:
+        logger.info("pretrained weights the model has no place for: %s", ", ".join(unmatched))
+    with torch.no_grad():
+        for name, v in pretrained.items():
+            if name in own:
+                own[name].copy_(v)
+    logger.info("loaded %d of the model's %d entries", len(set(pretrained) & set(own)), len(own))
+    return model
+
+
+def load_vgg_wsl_weights(model: nn.Module, path: str) -> nn.Module:
+    """A d2-WSL VGG16 ``.pkl`` (VGG_ILSVRC_16_layers_v1_d2.pkl, a stage-1
+    checkpoint's blobs) into a stage-1 model."""
+    return load_pretrained(model, state_dict_from_d2_wsl(load_pkl(path)))
+
+
+def load_resnet_imagenet_weights(model: nn.Module, path: str) -> nn.Module:
+    """caffe2's ImageNet R-50.pkl into a stage-2 GeneralizedRCNN's
+    ``backbone.bottom_up``."""
+    return load_pretrained(model, state_dict_from_c2_resnet(load_pkl(path)))
+
+
+def load_vgg_wsl_torch_checkpoint(model: nn.Module, path: str) -> nn.Module:
+    """A released stage-1 OICR+ ``.pth`` with d2-WSL names (the state dict
+    itself, or under "model" or "state_dict") into a stage-1 model."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model", "state_dict"):
+        inner = ckpt.get(key) if isinstance(ckpt, dict) else None
+        if isinstance(inner, dict) and any(torch.is_tensor(v) for v in inner.values()):
+            ckpt = inner
+            break
+    blobs = {k: v.float().numpy() for k, v in ckpt.items() if torch.is_tensor(v)}
+    return load_pretrained(model, state_dict_from_d2_wsl(blobs))

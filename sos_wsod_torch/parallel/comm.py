@@ -11,8 +11,9 @@ for it here:
   - ``replicate``: ``DistributedDataParallel`` broadcasts rank 0's
     parameters and buffers when it wraps the model (``wrap_ddp``), and its
     gradient all-reduce keeps the replicas equal from there on;
-  - ``make_mesh``, ``data_sharding`` and ``replicated`` have no counterpart:
-    there is no mesh, each process holds whole tensors on its own device;
+  - ``make_mesh``'s model axis is ``parallel/tensor.py``'s process groups;
+    ``data_sharding`` and ``replicated`` have no counterpart: there is no
+    mesh, each process holds its tensors on its own device;
   - ``local_batch_size`` and ``process_gather`` are ported as they are.
 Outside a process group every function here answers for one process: rank
 0 of 1, gathers are the identity, ``synchronize`` does nothing.
@@ -118,15 +119,19 @@ def derive_seed(seed: int, index: int) -> int:
     return int((int(state[0]) << 31) ^ int(state[1]))
 
 
-def wrap_ddp(model: torch.nn.Module) -> Optional[torch.nn.parallel.DistributedDataParallel]:
+def wrap_ddp(model: torch.nn.Module, process_group=None
+             ) -> Optional[torch.nn.parallel.DistributedDataParallel]:
     """``model`` under DistributedDataParallel (its own card's device id on
-    CUDA), through ``CallModule`` so that any of its methods runs through
-    DDP's forward; None outside a process group."""
+    CUDA) over ``process_group`` (the whole world when None; the
+    data-parallel group under tensor parallelism), through ``CallModule``
+    so that any of its methods runs through DDP's forward; None outside a
+    process group."""
     if not is_initialized():
         return None
     device = next(model.parameters()).device
     return torch.nn.parallel.DistributedDataParallel(
-        CallModule(model), device_ids=[device.index] if device.type == "cuda" else None)
+        CallModule(model), device_ids=[device.index] if device.type == "cuda" else None,
+        process_group=process_group)
 
 
 class CallModule(torch.nn.Module):

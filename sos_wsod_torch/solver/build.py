@@ -10,7 +10,8 @@ momentum, the first buffer equal to the gradient, update lr x buffer):
     package gives them lr 0 and weight decay 0;
   - the schedule multiplies every group's lr and steps once per optimizer
     update, as the JAX package's update count does;
-  - CLIP_GRADIENTS clips by value or by global L2 norm before the update.
+  - CLIP_GRADIENTS clips by value or by global L2 norm before the update
+    (under tensor parallelism the norm of the whole model).
 """
 from __future__ import annotations
 
@@ -105,12 +106,19 @@ def build_optimizer(cfg, model: nn.Module
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
 
 
-def clip_gradients(cfg, params) -> None:
-    """SOLVER.CLIP_GRADIENTS on the gradients of ``params``, in place."""
+def clip_gradients(cfg, params, sharded=()) -> None:
+    """SOLVER.CLIP_GRADIENTS on the gradients of ``params``, in place.
+    ``sharded``: those of ``params`` split over the tensor-parallel group,
+    whose squared norms a norm clip sums over the group
+    (``parallel/tensor.py:clip_grad_norm_``)."""
     clip = cfg.SOLVER.CLIP_GRADIENTS
     if not clip.ENABLED:
         return
     if clip.CLIP_TYPE == "value":
         torch.nn.utils.clip_grad_value_(params, clip.CLIP_VALUE)
+    elif sharded:
+        from ..parallel.tensor import clip_grad_norm_
+
+        clip_grad_norm_(params, sharded, clip.CLIP_VALUE)
     else:
         torch.nn.utils.clip_grad_norm_(params, clip.CLIP_VALUE)

@@ -8,9 +8,13 @@ the kernel's output rows per CUDA block. Table and indices are made on the
 card from a seeded ``torch.Generator``. The kernel must equal
 ``index_select`` bit for bit; then both are timed by CUDA events, and each
 line gives the median time of one call and the rate under the JAX tool's
-yardstick, rows x c x itemsize bytes over that time:
+yardstick, rows x c x itemsize bytes over that time. ``--turns N`` then
+times the two N more rounds in turns (index_select, kernel, kernel,
+index_select), each reading a median of ``--iters`` calls, and prints the
+range of each: the readings to compare the two by, since the card's
+readings move between processes and over time:
 
-    python -m sos_wsod_torch.tools.bench_gather [--rows 1048576] [--blk 512]
+    python -m sos_wsod_torch.tools.bench_gather [--rows 1048576] [--blk 512] [--turns 4]
 """
 from __future__ import annotations
 
@@ -60,6 +64,19 @@ def run(table: torch.Tensor, idx: torch.Tensor, blk: int, iters: int) -> Dict[st
             "plain_gbs": gbytes / plain_ms * 1e3}
 
 
+def turns(table: torch.Tensor, idx: torch.Tensor, blk: int, iters: int, rounds: int
+          ) -> Dict[str, list]:
+    """``rounds`` rounds of index_select, kernel, kernel, index_select, each
+    a median ms of ``iters`` calls: {"plain_ms": [...], "ms": [...]}."""
+    out = {"plain_ms": [], "ms": []}
+    plain = ("plain_ms", lambda: gather_rows_reference(table, idx))
+    kernel = ("ms", lambda: gather_rows(table, idx, blk))
+    for _ in range(rounds):
+        for key, fn in (plain, kernel, kernel, plain):
+            out[key].append(cuda_ms(fn, iters))
+    return out
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20)  # gathered rows
@@ -67,6 +84,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--c", type=int, default=512)
     ap.add_argument("--blk", type=int, default=512)
     ap.add_argument("--iters", type=int, default=8)
+    ap.add_argument("--turns", type=int, default=0, help="rounds timed in turns after the check")
     return ap.parse_args(argv)
 
 
@@ -80,6 +98,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     print(f"index_select  {res['plain_ms']:8.3f} ms  {res['plain_gbs']:7.1f} GB/s", flush=True)
     print(f"cuda_gather   {res['ms']:8.3f} ms  {res['gbs']:7.1f} GB/s (blk={args.blk})",
           flush=True)
+    if args.turns:
+        t = turns(table, idx, args.blk, args.iters, args.turns)
+        for key, name in (("plain_ms", "index_select"), ("ms", "cuda_gather ")):
+            print(f"turns {name} {min(t[key]):.3f}-{max(t[key]):.3f} ms over {len(t[key])} "
+                  f"readings: {' '.join(f'{x:.3f}' for x in t[key])}", flush=True)
+        res["turns"] = t
     return res
 
 

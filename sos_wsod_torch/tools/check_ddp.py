@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..engine.hooks import HookBase
-from ..parallel import comm
+from ..parallel import comm, tensor
 
 # the kernels' launch counters (sos_wsod_torch/kernels/*.py)
 KERNEL_COUNTERS = (("roi_pool_fwd", "roi_pool", "launches"),
@@ -54,12 +54,15 @@ def kernel_launches() -> Dict[str, int]:
             for name, mod, attr in KERNEL_COUNTERS}
 
 
-def state_digest(*modules: torch.nn.Module) -> str:
-    """sha256 of every entry of the modules' state dicts, by name: equal
-    digests are bit-identical weights."""
+def state_digest(*modules: torch.nn.Module, only=None) -> str:
+    """sha256 of every entry of the modules' state dicts (of those named in
+    ``only``, when given), by name: equal digests are bit-identical
+    weights."""
     h = hashlib.sha256()
     for m in modules:
         for k, v in m.state_dict().items():
+            if only is not None and k not in only:
+                continue
             h.update(k.encode())
             h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
                      .tobytes())
@@ -82,23 +85,30 @@ def _sync(device) -> None:
 class ReplicaCheckHook(HookBase):
     """After every step: the milliseconds of the step's ``run_step`` on this
     rank (the card synchronized before and after; the other hooks, a
-    checkpoint's save among them, outside), then the digest of the
+    checkpoint's save among them, outside) and the kernels' launches in
+    it, then the digest of the
     trainer's model (and teacher) on every rank; raises unless the ranks
-    hold the same bits."""
+    hold the same bits. Under tensor parallelism the digest is that of the
+    replicated entries, which every rank must share, then ":" and that of
+    the rank's shards, which the ranks of one tensor-parallel rank must
+    share."""
 
     def __init__(self):
         self.records: List[Dict[str, Any]] = []
-        self._ms = 0.0
+        self._ms, self._launches = 0.0, {}
 
     def before_train(self):
         run_step = self.trainer.run_step
 
         def timed_step():
             _sync(self.trainer.device)
+            before = kernel_launches()
             t0 = time.perf_counter()
             run_step()
             _sync(self.trainer.device)
             self._ms = (time.perf_counter() - t0) * 1e3
+            after = kernel_launches()
+            self._launches = {k: after[k] - before[k] for k in after}
 
         self.trainer.run_step = timed_step
 
@@ -106,12 +116,51 @@ class ReplicaCheckHook(HookBase):
         ms = self._ms
         modules = [self.trainer.model] + ([self.trainer.teacher]
                                           if hasattr(self.trainer, "teacher") else [])
-        digest = state_digest(*modules)
-        digests = comm.process_gather([digest])
-        if len(set(digests)) != 1:
+        split = self.trainer.tp_dims
+        if split:
+            names = set(self.trainer.model.state_dict())
+            digest = (state_digest(*modules, only=names - set(split)) + ":" +
+                      state_digest(*modules, only=set(split)))
+        else:
+            digest = state_digest(*modules)
+        digests = comm.process_gather([(tensor.rank(), digest)])
+        replicated = {d.split(":")[0] for _, d in digests}
+        shards = {r: {d for q, d in digests if q == r} for r, _ in digests}
+        if len(replicated) != 1 or any(len(v) != 1 for v in shards.values()):
             raise AssertionError(f"iteration {self.trainer.iter}: the ranks' weights differ "
                                  f"({digests})")
-        self.records.append({"iter": self.trainer.iter, "digest": digest, "ms": ms})
+        self.records.append({"iter": self.trainer.iter, "digest": digest, "ms": ms,
+                             "launches": self._launches})
+
+
+class SnapshotAt(HookBase):
+    """After ``steps`` steps: the model's state dict in the one-process
+    layout (gathered: collective) in ``state``, on the CPU."""
+
+    def __init__(self, steps: int):
+        self.steps, self.state = steps, None
+
+    def after_step(self):
+        if self.trainer.iter + 1 == self.steps:
+            self.state = {k: v.detach().cpu().clone() for k, v in tensor.gather_state_dict(
+                self.trainer.model.state_dict(), self.trainer.tp_dims).items()}
+
+
+class TraceAt(HookBase):
+    """Step ``step``'s tensor-parallel all-reduces (``tensor.traced``)."""
+
+    def __init__(self, step: int):
+        self.step, self.records, self._ctx = step, [], None
+
+    def before_step(self):
+        if self.trainer.iter == self.step:
+            self._ctx = tensor.traced()
+            self.records = self._ctx.__enter__()
+
+    def after_step(self):
+        if self._ctx is not None:
+            self._ctx.__exit__(None, None, None)
+            self._ctx = None
 
 
 class SaveAt(HookBase):
@@ -225,31 +274,40 @@ def train_report(spec: Dict[str, Any], out_dir: str) -> Dict[str, Any]:
     ``config`` and ``opts``, ``model`` (a state dict) and ``teacher``
     (optional), the global batches (``batches``, or ``synthetic``: the
     keyword arguments of ``stage1_batches`` but the config), ``start_iter``,
-    ``dan_dropout`` (stage 1), ``draws`` (optional: per rank, the arrays to
+    ``dan_dropout`` (stage 1), ``tp`` (optional: the tensor-parallel size,
+    ``parallel/tensor.py``; the weights reported are gathered into the
+    one-process layout), ``snapshot_at`` (optional: the weights after that
+    many steps, "snapshot"), ``trace_at`` (optional: that step's
+    tensor-parallel all-reduces, "tp_trace"), ``draws`` (optional: per rank, the arrays to
     feed ``sampling.uniform``), ``record_draws``, ``threads`` (CPU threads),
     ``report_model`` (default True: the weights after the last step in the
-    report), ``resume_at`` (optional: save a checkpoint under
-    ``out_dir/checkpoints`` after that many steps (``SaveAt``), then build
-    a second trainer from the spec's weights, resume it from that
-    checkpoint and train the remaining steps: its records are
-    ``resumed``)."""
+    report), ``save_at`` (optional: save a checkpoint under
+    ``out_dir/checkpoints`` after that many steps, ``SaveAt``),
+    ``resume_at`` (optional: the same, then build a second trainer from the
+    spec's weights, resume it from that checkpoint and train the remaining
+    steps: its records are ``resumed``)."""
     from ..core import sampling
     from ..engine.checkpoint import Checkpointer
     from ..engine.synthetic import load_config
 
     if spec.get("threads"):
         torch.set_num_threads(spec["threads"])
+    tensor.init(spec.get("tp", 1))
     rank, world = comm.get_rank(), comm.get_world_size()
     batches = spec.get("batches")
     if batches is None:
         cfg = load_config(spec["config"], spec.get("opts", ()))
         batches = stage1_batches(cfg, **spec["synthetic"])
-    batches = _local_batches(spec["kind"], batches, rank, world)
+    batches = _local_batches(spec["kind"], batches, tensor.data_rank(), tensor.data_world_size())
     model, trainer = build_trainer(spec, batches)
     hook = ReplicaCheckHook()
     resume_at = spec.get("resume_at")
-    ckpt = Checkpointer(os.path.join(out_dir, "checkpoints")) if resume_at else None
-    trainer.register_hooks([hook] + ([SaveAt(ckpt, resume_at)] if ckpt else []))
+    save_at = resume_at or spec.get("save_at")
+    ckpt = Checkpointer(os.path.join(out_dir, "checkpoints")) if save_at else None
+    snapshot = SnapshotAt(spec["snapshot_at"]) if spec.get("snapshot_at") else None
+    trace = TraceAt(spec["trace_at"]) if spec.get("trace_at") is not None else None
+    trainer.register_hooks([hook] + ([SaveAt(ckpt, save_at)] if ckpt else []) +
+                           [h for h in (snapshot, trace) if h is not None])
     uniform = sampling.uniform
     if spec.get("draws") is not None:
         sampling.uniform = DrawFeeder(spec["draws"][rank])
@@ -266,15 +324,19 @@ def train_report(spec: Dict[str, Any], out_dir: str) -> Dict[str, Any]:
         sampling.uniform = uniform
     hist = trainer.storage.histories()
     keep = spec.get("report_model", True)
-    out = {"rank": rank, "world": world, "ddp": trainer.ddp is not None,
+    weights = tensor.gather_state_dict(model.state_dict(), trainer.tp_dims) if keep else None
+    out = {"rank": rank, "world": world, "ddp": trainer.ddp is not None, "tp": tensor.size(),
            "records": hook.records, "draws": draws,
            "scalars": {k: [(it, v) for v, it in h.values()] for k, h in hist.items()},
-           "model": ({k: v.cpu() for k, v in model.state_dict().items()} if keep else None),
+           "model": ({k: v.cpu() for k, v in weights.items()} if keep else None),
+           "snapshot": snapshot.state if snapshot else None,
+           "tp_trace": trace.records if trace else None,
            "teacher": ({k: v.cpu() for k, v in trainer.teacher.state_dict().items()}
                        if keep and hasattr(trainer, "teacher") else None),
            "generator": trainer.generator.get_state()}
-    if resume_at:
+    if ckpt:
         out["saved"] = list(ckpt.saved)
+    if resume_at:
         _, again = build_trainer(spec, batches[resume_at:])
         at = Checkpointer(ckpt.output_dir).resume_or_load(again)
         again_hook = ReplicaCheckHook()
@@ -367,6 +429,7 @@ def run_tasks(tasks: Sequence[Dict[str, Any]], out_dir: str, cwd: Optional[str] 
             with open(os.path.join(task["output_dir"], "last_checkpoint"), "w") as f:
                 f.write(task["marker"])
         comm.synchronize()
+        tensor.init(1)
         before = kernel_launches()
         if torch.cuda.is_available():
             torch.cuda.reset_peak_memory_stats()

@@ -14,13 +14,20 @@ not read: training starts from the model's initializer, seeded by SEED.
 ``__main__`` starts ``main`` through ``engine/launch.py``: ``--num-gpus N``
 processes on this machine (``--num-machines M --machine-rank R --dist-url
 tcp://host:port`` across machines), one a GPU, data parallel; each maps its
-share of SOLVER.IMS_PER_BATCH.
+share of SOLVER.IMS_PER_BATCH. With TPU.MODEL_AXIS_SIZE tp > 1 the world
+is dp x tp: the DAN fc stack is split over groups of tp ranks
+(``parallel/tensor.py``), which share their images, and SOLVER.IMS_PER_BATCH
+must divide by dp, as in the JAX CLI; evaluation during training then runs
+on every rank, each tensor-parallel group over its dp share of the test
+images. A world of one ignores the key, as the JAX CLI does on one chip.
 
     python -m sos_wsod_torch.tools.train_net_stage1 [--num-gpus N] \\
-        --config-file configs/stage1/voc07_oicr_plus.yaml [--resume] [--eval-only] [KEY VALUE ...]
+        --config-file configs/stage1/voc07_oicr_plus.yaml [--resume] [--eval-only] \\
+        [TPU.MODEL_AXIS_SIZE tp] [KEY VALUE ...]
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 from collections import OrderedDict
@@ -36,6 +43,7 @@ from ..engine.defaults import (
     config_device,
     default_argument_parser,
     default_setup,
+    inference_on_samples,
     run_stage1_inference,
 )
 from ..engine.hooks import (
@@ -52,7 +60,7 @@ from ..engine.weights import load_weights
 from ..evaluation.testing import verify_results
 from ..evaluation.voc_eval import PascalVOCDetectionEvaluator, annotations_from_dataset_dicts
 from ..models.meta.rcnn_wsl_single import build_stage1_model
-from ..parallel import comm
+from ..parallel import comm, tensor
 from ..utils.events import CommonMetricPrinter, JSONWriter
 
 logger = logging.getLogger(__name__)
@@ -64,14 +72,49 @@ def setup(args):
         cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(args.opts or [])
     cfg.freeze()
+    tensor.init(cfg.TPU.MODEL_AXIS_SIZE)
     cfg = auto_scale_workers(cfg, rank_and_world()[1])
     default_setup(cfg, args)
     return cfg
 
 
-def do_test(cfg, model) -> OrderedDict:
+class _Recorder:
+    """Stands in for an evaluator: keeps the arguments of each
+    ``process_single``."""
+
+    def __init__(self):
+        self.items = []
+
+    def process_single(self, *args) -> None:
+        self.items.append(args)
+
+
+def _infer_split(cfg, model, name: str, evaluator, device) -> OrderedDict:
+    """``run_stage1_inference`` of a model split over tensor-parallel
+    groups, called on every rank: each group infers the images of its
+    data-parallel share, rank 0 hands the detections to ``evaluator`` in
+    dataset order and returns its results; the other ranks return {}."""
+    dp_rank, dp = rank_and_world()
+    recorder = _Recorder()
+    inference_on_samples(model, build_stage1_test_loader(cfg, name, shard=(dp_rank, dp)),
+                         recorder, device)
+    shares = comm.process_gather([recorder.items])[::tensor.size()]
+    if not comm.is_main_process():
+        return OrderedDict()
+    evaluator.reset()
+    for item in itertools.chain.from_iterable(itertools.zip_longest(*shares)):
+        if item is not None:
+            evaluator.process_single(*item)
+    results = evaluator.evaluate()
+    logger.info("Evaluation results: %s", dict(results))
+    return results
+
+
+def do_test(cfg, model, split: bool = False) -> OrderedDict:
     """Each of DATASETS.TEST through ``run_stage1_inference`` into a VOC
-    evaluator over its XML ground truth; checks TEST.EXPECTED_RESULTS."""
+    evaluator over its XML ground truth; checks TEST.EXPECTED_RESULTS. A
+    model split over tensor-parallel groups (``split``) is evaluated by
+    every rank (``_infer_split``); rank 0 returns the results."""
     register_all_voc()
     register_all_extra()
     device = next(model.parameters()).device
@@ -84,8 +127,13 @@ def do_test(cfg, model) -> OrderedDict:
             save_detection_result=cfg.WSODEVAL.SAVE_DETECTION_RESULT,
             save_path=cfg.WSODEVAL.SAVE_PATH or os.path.join(
                 cfg.OUTPUT_DIR, "detection_results", "oicr_plus_{}.json"))
-        results[name] = run_stage1_inference(model, build_stage1_test_loader(cfg, name),
-                                             evaluator, device)
+        if split:
+            results[name] = _infer_split(cfg, model, name, evaluator, device)
+        else:
+            results[name] = run_stage1_inference(model, build_stage1_test_loader(cfg, name),
+                                                 evaluator, device)
+    if split and not comm.is_main_process():
+        return OrderedDict()
     if cfg.TEST.EXPECTED_RESULTS:
         verify_results(cfg, results)
     return results
@@ -116,6 +164,11 @@ def main(args, hooks=()):
         comm.synchronize()
         return results
 
+    dp, tp = rank_and_world()[1], tensor.size()
+    if cfg.SOLVER.IMS_PER_BATCH % dp:
+        raise ValueError(f"IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} not divisible by "
+                         f"data-parallel size {dp} ({comm.get_world_size()} processes / "
+                         f"MODEL_AXIS_SIZE {tp})")
     model = build_synthetic_model(cfg, device, max(cfg.SEED, 0))
     trainer = Stage1Trainer(cfg, model, build_stage1_train_loader(cfg))
     # rank 0 prints and writes metrics.json
@@ -127,7 +180,8 @@ def main(args, hooks=()):
         LRSchedulerHook(),
         CheckpointHook(PeriodicCheckpointer(checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD,
                                             cfg.SOLVER.MAX_ITER)),
-        EvalHook(cfg.TEST.EVAL_PERIOD, lambda: do_test(cfg, model)),
+        EvalHook(cfg.TEST.EVAL_PERIOD, lambda: do_test(cfg, model, split=tp > 1),
+                 all_ranks=tp > 1),
         writer,
         *hooks,
     ])

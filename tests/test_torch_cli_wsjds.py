@@ -54,8 +54,9 @@ TINY = ["MODEL.ROI_BOX_HEAD.DAN_DIM", "[16, 16]", "TPU.COMPUTE_DTYPE", "float32"
         "DATASETS.PROPOSAL_FILES_TRAIN", "('datasets/proposals/mcg_voc_2007_train_d2.pkl',)"]
 WSJDS_KEYS = {"loss_cls_pos", "loss_cls_neg", "loss_sem_seg", "mask_loss_cls_pos",
               "mask_loss_cls_neg"}
-# keys the repo's configs set that the port's get_cfg() lacks: no module of
-# the port (nor of the JAX package) reads them (ROADMAP Queue 3)
+# keys the repo's configs set that no module of the port (nor of the JAX
+# package) reads; get_cfg() holds them with the JAX defaults, so that they
+# are type-checked when merged
 UNREAD_KEYS = {"INPUT.FORMAT", "TEST.EVALUATOR", "DATASETS.CROSS_DATASET", "MODEL.MASK_ON",
                "MODEL.VGG.DEPTH", "OICRPLUS.PROPOSAL_NUM", "VERSION", "VIS_PERIOD"}
 
@@ -167,15 +168,17 @@ def _leaves(d, prefix=""):
 def test_every_config_key_is_in_get_cfg_or_named_unread():
     """``merge_from_file`` adds a key the defaults lack without a word (as
     the JAX package's does). So every key a YAML file under configs/ sets
-    must be in the port's get_cfg(), or in UNREAD_KEYS; a new key fails
-    here until it is read or named there."""
+    must be in the port's get_cfg(); the unread ones among them are named in
+    UNREAD_KEYS, which must all be set by some config and be in the
+    defaults."""
     known = set(_leaves(get_cfg().to_dict()))
-    found = {}
+    found, set_somewhere = {}, set()
     for path in sorted(glob.glob(str(ROOT / "configs" / "**" / "*.yaml"), recursive=True)):
         cfg = yaml.safe_load(open(path)) or {}
         cfg.pop("_BASE_", None)
         for key in _leaves(cfg):
+            set_somewhere.add(key)
             if key not in known:
                 found.setdefault(key, []).append(pathlib.Path(path).name)
-    assert set(found) == UNREAD_KEYS, found
-    assert not UNREAD_KEYS & known
+    assert not found, found
+    assert UNREAD_KEYS <= known & set_somewhere, UNREAD_KEYS - set_somewhere

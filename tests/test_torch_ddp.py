@@ -6,7 +6,8 @@ the card) and writing what it saw.
   - the launcher's contract: more than one machine needs a tcp:// address,
     more ranks than cards raise before any process starts (NCCL), a world of
     one runs in this process with no process group, and a CLI's main called
-    with --num-gpus 2 outside the launcher refuses;
+    with --num-gpus 2 outside the launcher refuses, as does one whose world
+    TPU.MODEL_AXIS_SIZE does not divide;
   - the loaders: each rank's stage-1 and two-crop streams are disjoint and
     their union is the single-process stream of the same global batch;
   - stage 1: one DDP step of 2 ranks x 1 image (dropout 0, so neither run
@@ -123,11 +124,14 @@ def test_launch_at_world_one_runs_here_without_a_group(monkeypatch):
 
 
 def test_cli_main_with_num_gpus_outside_the_launcher_refuses(tmp_path, monkeypatch):
+    """Also: a world that TPU.MODEL_AXIS_SIZE does not divide raises before
+    any group is made, as the JAX package's make_mesh does."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="no process group"):
         cli.main(default_argument_parser().parse_args(
             ["--num-gpus", "2", "--config-file", CONFIG, *TINY, "OUTPUT_DIR", "refused"]))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    monkeypatch.setattr(comm, "get_world_size", lambda: 3)
+    with pytest.raises(ValueError, match="3 processes not divisible by MODEL_AXIS_SIZE=2"):
         cli.main(default_argument_parser().parse_args(
             ["--config-file", CONFIG, *TINY, "OUTPUT_DIR", "refused", "TPU.MODEL_AXIS_SIZE",
              "2"]))

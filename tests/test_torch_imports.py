@@ -259,6 +259,26 @@ from sos_wsod_torch.engine.synthetic import synthetic_mask_sample
 val = [stack_samples([synthetic_mask_sample((64, 64), (60, 64), 2, 4, 20, 0)], "cpu")]
 assert LossEvalHook(1, frcnn, lambda: iter(val)).compute(frcnn) > 0
 
+# the entry points, tensor parallelism's rules and the weight readers
+# (chip_smoke's phase 20): a one-rank dryrun in this process, a split DAN's
+# names, and a caffe2 blob pickled and read into a state dict
+assert {"sos_wsod_torch.entry", "sos_wsod_torch.parallel.tensor"} <= set(names)
+import pickle
+import numpy as np
+from sos_wsod_torch.entry import dryrun_multichip
+from sos_wsod_torch.engine.weights import load_pkl, state_dict_from_c2_resnet
+from sos_wsod_torch.parallel import tensor
+dryrun_multichip(1, device="cpu")
+torch.set_num_threads(1)
+assert tensor.split_dims({n: p.shape for n, p in frcnn.named_parameters()}, 2) == {}
+with tempfile.TemporaryDirectory() as tmp:
+    with open(tmp + "/r.pkl", "wb") as f:
+        pickle.dump({"conv1_w": np.ones((4, 3, 7, 7), np.float32),
+                     "res_conv1_bn_s": np.ones(4, np.float32),
+                     "res_conv1_bn_b": np.zeros(4, np.float32)}, f)
+    sd = state_dict_from_c2_resnet(load_pkl(tmp + "/r.pkl"))
+assert sd["backbone.bottom_up.stem.conv1.weight"].shape == (4, 3, 7, 7), sorted(sd)
+
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "sos_wsod_tpu", "sklearn")
              and sys.modules[m] is not None)
@@ -283,7 +303,9 @@ def test_port_and_chip_smoke_import_without_jax():
     single-view head through the stage-1 CLI (WSJDS's --eval-only too),
     with scikit-learn blocked too; and WSJDS's host CRF round trip; and a
     step and a predict of each UWSOD model; and a step of the cascade and
-    mask heads, of the deform block, rotated NMS and ROILabel."""
+    mask heads, of the deform block, rotated NMS and ROILabel; and a
+    one-rank dryrun of the entry module, tensor parallelism's rules and a
+    caffe2 blob through the weight readers."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
