@@ -82,8 +82,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
   7. gather: the row-gather microbenchmark (python -m
      sos_wsod_torch.tools.bench_gather) at its default shape, 2^20 random
      rows of 512 bf16 from a 2,871,180-row table, the kernel bit-identical
-     to index_select, with median CUDA-event times of both; then a ragged
-     row count (2^20 - 37) and f32 at 2^18 rows, bit-identical;
+     to index_select, with the device time of both in turns, each beside
+     the bound; then a ragged row count (2^20 - 37) and f32 at 2^18 rows,
+     bit-identical; the kernel's registers, shared memory and spills from
+     its ptxas report;
   8. CLI: a synthetic VOC tree on disk (8 train, 4 val, 4 test 375x500
      JPEGs with XMLs and 4000 proposals each in detectron2 pickles) through
      the stage-1 CLI (sos_wsod_torch.tools.train_net_stage1.main, in this
@@ -1117,28 +1119,40 @@ def phase_train(device, smi: str) -> dict:
 
 def phase_gather(device) -> dict:
     """Kernel B's main path, the microbenchmark tool at its default shape
-    (which checks bit-identity itself), then the ragged and f32 checks."""
+    (which checks bit-identity itself and times B and index_select by device
+    time in turns), then the ragged and f32 checks, the bound and B's
+    compiler report."""
+    from sos_wsod_torch.kernels import build
     from sos_wsod_torch.kernels import gather_rows as kernel
     from sos_wsod_torch.tools import bench_gather
+    from sos_wsod_torch.tools.measure import compiler_report
 
     kernel.launches = 0
     res = bench_gather.main([])
     launches = kernel.launches
-    log("gather", f"bench_gather defaults (table {GATHER_TABLE_ROWS} x {GATHER_C} bf16, 2^20 "
-                  f"rows, blk 512): bit-identical to index_select; kernel {res['ms']:.3f} ms "
-                  f"{res['gbs']:.1f} GB/s, index_select {res['plain_ms']:.3f} ms "
-                  f"{res['plain_gbs']:.1f} GB/s; {launches} launches")
-    for rows, dtype in (((1 << 20) - 37, torch.bfloat16), (1 << 18, torch.float32)):
-        table, idx = bench_gather.make_inputs(GATHER_TABLE_ROWS, rows, GATHER_C, dtype, device,
-                                              SEED + 1)
-        bench_gather.check(table, idx, 512)
-        log("gather", f"{rows} rows {str(dtype)[6:]}: bit-identical to index_select")
-        del table, idx
-    # rows read from the table and written out once, the indices read once
     rows = 1 << 20
+    # rows read from the table and written out once, the int32 indices read once
     bound = bound_ms(2 * rows * GATHER_C * 2 + rows * 4)
-    log("gather", f"bound {bound:.4f} ms: kernel at {100 * bound / res['ms']:.1f}% of it, "
-                  f"index_select at {100 * bound / res['plain_ms']:.1f}%")
+    if abs(bound - res["bound_ms"]) > 1e-9:
+        raise AssertionError(f"gather bound {res['bound_ms']} ms, expected {bound}")
+    log("gather", f"bench_gather defaults (table {GATHER_TABLE_ROWS} x {GATHER_C} bf16, 2^20 "
+                  f"rows, blk {kernel.DEFAULT_BLK}): bit-identical to index_select; device time "
+                  f"in turns: kernel {res['ms']:.4f} ms {res['gbs']:.1f} GB/s, index_select "
+                  f"{res['plain_ms']:.4f} ms {res['plain_gbs']:.1f} GB/s; kernel as called "
+                  f"{res['called_ms']:.4f} ms; {launches} launches")
+    for rows_k, dtype in (((1 << 20) - 37, torch.bfloat16), (1 << 18, torch.float32)):
+        table, idx = bench_gather.make_inputs(GATHER_TABLE_ROWS, rows_k, GATHER_C, dtype, device,
+                                              SEED + 1)
+        bench_gather.check(table, idx, kernel.DEFAULT_BLK)
+        log("gather", f"{rows_k} rows {str(dtype)[6:]}: bit-identical to index_select")
+        del table, idx
+    log("gather", f"bound {bound:.4f} ms: kernel's device time at {100 * bound / res['ms']:.1f}% "
+                  f"of it, index_select's at {100 * bound / res['plain_ms']:.1f}%")
+    report = compiler_report(build.library_path("gather_rows")).replace("\n", "; ")
+    p = res["plan"]
+    log("gather", f"ptxas (registers, static shared memory, spills): {report}; dynamic shared "
+                  f"memory {p.smem_bytes} bytes a block ({p.stages} stages of {p.stage_bytes}), "
+                  f"{p.blocks_per_sm} blocks an SM, grid {p.grid}")
     return {"launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": bound, "bound_by": "bytes",
             "library_ms": res["plain_ms"]}

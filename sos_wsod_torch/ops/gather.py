@@ -13,14 +13,15 @@ from ..kernels.gather_rows import DEFAULT_BLK, gather_rows_cuda
 
 
 def gather_rows_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The plain version: ``index_select`` along the rows."""
-    return torch.index_select(table, 0, idx.long())
+    """The plain version: ``index_select`` along the rows, which takes int32
+    and int64 indices as they are."""
+    return torch.index_select(table, 0, idx)
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor, blk: int = DEFAULT_BLK) -> torch.Tensor:
     """table (N, C), idx (R,) int32 or int64 -> (R, C) in the table's dtype.
-    ``blk`` is the kernel's output rows per CUDA block; the plain version
-    does not read it."""
+    ``blk`` is the kernel's output rows a chunk, the rows a block claims at
+    a time; the plain version does not read it."""
     if table.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"gather_rows: expected table (N, C) and idx (R,), got "
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")

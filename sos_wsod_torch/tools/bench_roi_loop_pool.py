@@ -53,7 +53,8 @@ from ..kernels.roi_pool_bwd import roi_pool_bwd_cuda
 from ..ops.roi_loop_pool import loop_windows, roi_loop_pool_reference
 from ..ops.roi_pool import roi_pool_backward_reference
 from .bench_roi_pool import FEAT_HWC, TOP_FEAT_HWC, _bits, production_pool_inputs
-from .measure import bound_ms, card_line, cuda_ms, device_ms, fmt_turns, in_turns
+from .measure import (bound_ms, card_line, compiler_report, cuda_ms, device_ms, fmt_turns,
+                      in_turns)
 
 SCALE = 1.0 / 8
 CASES = ((FEAT_HWC, torch.bfloat16), (FEAT_HWC, torch.float32),
@@ -408,13 +409,6 @@ def builds(args) -> Dict[str, object]:
             "roi_loop_pool_fwd_" + re.sub(r"\W", "_", s[0]) if s[1] else "roi_loop_pool_fwd",
             s[1]), specs))
     return {label: kernel.bind(path) for (label, _), path in zip(specs, paths)}
-
-
-def compiler_report(lib_path) -> str:
-    """The register and spill lines of the build's ptxas report."""
-    log = lib_path.with_name(lib_path.name + ".log")
-    lines = log.read_text().splitlines() if log.is_file() else []
-    return "\n".join(ln.strip() for ln in lines if "registers" in ln or "spill" in ln)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:

@@ -63,6 +63,14 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def compiler_report(lib_path) -> str:
+    """The register and spill lines of a build's ptxas report, which
+    ``kernels.build`` keeps beside the library."""
+    log = lib_path.with_name(lib_path.name + ".log")
+    lines = log.read_text().splitlines() if log.is_file() else []
+    return "\n".join(ln.strip() for ln in lines if "registers" in ln or "spill" in ln)
+
+
 def in_turns(fns: Dict[str, Callable[[], object]], iters: int,
              timer: Callable[[Callable[[], object], int], float] = cuda_ms
              ) -> Dict[str, List[float]]:

@@ -49,6 +49,50 @@ def test_kernel_small_shapes_and_int64(device, blk, c, dtype):
     assert empty.shape == (0, c) and kernel.launches == before + 2
 
 
+def test_kernel_row_larger_than_a_stage(device):
+    """64 KB rows (32,768 bf16) go through the ring in pieces."""
+    table, idx = make_inputs(300, 1000 - 37, 32768, torch.bfloat16, device, seed=7)
+    assert kernel.plan(idx.shape[0], 65536, 512, 132).pieces > 1
+    assert check(table, idx, 512) == 0.0
+    assert check(table, idx, 1) == 0.0
+
+
+def test_kernel_more_chunks_than_the_grid(device):
+    """blk 1 at 10,000 rows: each block walks many chunks."""
+    table, idx = make_inputs(4096, 10000, 512, torch.bfloat16, device, seed=8)
+    assert check(table, idx, 1) == 0.0
+    assert check(table, idx, 3) == 0.0
+
+
+def test_kernel_int64_indices_at_the_default_shape(device):
+    table, idx = make_inputs(TABLE_ROWS, 1 << 20, 512, torch.bfloat16, device, seed=9)
+    assert check(table, idx.long(), 512) == 0.0
+
+
+@pytest.mark.parametrize("c,dtype", [(8, torch.bfloat16), (512, torch.float32)])
+def test_kernel_table_of_one_row(device, c, dtype):
+    table, idx = make_inputs(1, 777, c, dtype, device, seed=10)
+    assert int(idx.max()) == 0
+    for blk in (1, 64, 512):
+        assert check(table, idx, blk) == 0.0
+        assert check(table, idx.long(), blk) == 0.0
+
+
+def test_kernel_on_two_streams(device):
+    """Launches on two streams at once each claim their own chunks."""
+    tables = [make_inputs(4096, 200_000, 512, torch.bfloat16, device, seed=s) for s in (11, 12)]
+    streams = [torch.cuda.Stream(device) for _ in tables]
+    torch.cuda.synchronize()
+    outs = []
+    for (table, idx), stream in zip(tables, streams):
+        with torch.cuda.stream(stream):
+            outs.append([gather_rows(table, idx) for _ in range(3)])
+    torch.cuda.synchronize()
+    for (table, idx), got in zip(tables, outs):
+        want = gather_rows_reference(table, idx)
+        assert all(torch.equal(o, want) for o in got)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(device):
     table, idx = make_inputs(64, 10, 20, torch.bfloat16, device)
     with pytest.raises(ValueError, match="multiple of 16 bytes"):
